@@ -1,22 +1,16 @@
 # Convenience targets mirroring the reference's make UX (reference
 # Makefile:16-24: run-release piped a PPM to /tmp; watch-* live-reloaded).
-.PHONY: test test-fast lint bench render render-mesh verify inventory floor watch dryrun
+.PHONY: test test-fast lint bench render render-mesh verify inventory floor watch dryrun smoke
 
-# pytest-xdist, one worker per core, whole files per worker: a single
-# 40-minute pytest process accumulates enough Pallas-interpret state
-# (threads/callbacks) to segfault XLA's CPU compiler near the end of
-# the suite (reproduced twice at ~170/190 tests; every module passes
-# standalone — round 4 fenced this with a manual 3-process split).
-# Worker processes bound the accumulation the same way, restart on a
-# crash (--max-worker-restart), and run in parallel: full suite 22min
-# -> ~13min measured.  loadfile keeps module-scoped fixtures whole.
+# pytest-xdist, whole files per worker (loadfile keeps module-scoped
+# fixtures whole).  A crashed worker fails the run.
 test: lint
-	python -m pytest tests/ -q -n 4 --dist loadfile --max-worker-restart 4
+	python -m pytest tests/ -q -n 4 --dist loadfile
 
-test-fast:  ## <5 min tier: skips interpret-mode-heavy / golden gates
-	python -m pytest tests/ -q -m "not slow"
+test-fast:  ## everything but the two-process distributed test
+	python -m pytest tests/ -q -m "not slow" -n 4 --dist loadfile
 
-dryrun:  ## exactly what the driver's multichip gate runs: 8 virtual CPU devices
+dryrun:  ## the multi-device dry run on 8 virtual CPU devices
 	timeout 2400 python tools/run_dryrun.py 8
 
 lint:  ## enforced lint gate (the reference enforces clang-tidy, .clang-tidy:2)
@@ -25,11 +19,11 @@ lint:  ## enforced lint gate (the reference enforces clang-tidy, .clang-tidy:2)
 bench:
 	python bench.py
 
-render:  ## cover scene -> /tmp/cover.ppm (megakernel on TPU)
-	python -m rtow_tpu -w 1200 -s 128 --static-spheres -o /tmp/cover.ppm
+render:  ## cover scene -> cover.ppm
+	python -m rtow_tpu -w 1200 -s 128 --static-spheres -o cover.ppm
 
-render-mesh:  ## suzanne -> /tmp/suzanne.ppm
-	python -m rtow_tpu -l /root/reference/suzanne.obj -w 400 -s 64 -o /tmp/suzanne.ppm
+render-mesh:  ## the vendored knot OBJ -> knot.ppm
+	python -m rtow_tpu -l samples/knot_small.obj -w 400 -s 64 -o knot.ppm
 
 verify:  ## golden parity vs the C++ reference algorithm
 	python tools/golden_compare.py
@@ -39,6 +33,9 @@ inventory:  ## SURVEY §2 component coverage gate
 
 floor:  ## re-measure the CPU reference floor on this machine
 	python tools/measure_cpu_floor.py
+
+smoke:  ## the GPU smoke test (one card; --cards 4 for the sharded paths)
+	python chip_smoke.py
 
 watch:  ## live-reload dev loop (reference Makefile:16-18 entr+feh analogue)
 	python tools/watch.py

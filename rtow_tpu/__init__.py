@@ -1,6 +1,6 @@
-"""rtow_tpu — a TPU-native differentiable path tracer.
+"""rtow_tpu — a differentiable path tracer in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of joaotavora/raytracing-one-weekend
+A from-scratch JAX/XLA re-design of joaotavora/raytracing-one-weekend
 (C++ CPU path tracer): SoA scenes, counter-based RNG, a wavefront bounce
 loop instead of recursion, mesh-sharded rendering via shard_map, and
 reverse-mode gradients w.r.t. scene geometry and materials.
@@ -9,16 +9,17 @@ import os as _os
 
 import jax as _jax
 
-# Persistent compilation cache: the megakernel + fused bounce loops take
-# minutes to compile (remote Mosaic/XLA compile on the TPU host); cache
-# them across processes.  Opt out with RTOW_NO_COMPILE_CACHE=1; no-op
-# when the embedder already configured a cache dir.
-if (_jax.config.jax_compilation_cache_dir is None
-        and not _os.environ.get("RTOW_NO_COMPILE_CACHE")):
-    _jax.config.update(
-        "jax_compilation_cache_dir",
-        _os.path.join(_os.path.expanduser("~"), ".cache", "jax"),
-    )
+#: Persistent compilation cache used when neither ``JAX_COMPILATION_CACHE_DIR``
+#: nor an embedder names one: one fixed directory inside the checkout (the
+#: path is part of the cache key, so it must not move between runs).
+DEFAULT_COMPILE_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))), ".jax_cache"
+)
+
+# The bounce loops take seconds to minutes to compile; cache them across
+# processes.  JAX reads JAX_COMPILATION_CACHE_DIR itself.
+if _jax.config.jax_compilation_cache_dir is None:
+    _jax.config.update("jax_compilation_cache_dir", DEFAULT_COMPILE_CACHE_DIR)
     _jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
 
 from .config import Config

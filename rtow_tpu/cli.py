@@ -16,7 +16,7 @@ from .config import Config
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rtweekend-tpu",
-        description="Raytracing one weekend/week/restoflife — TPU native",
+        description="Raytracing one weekend/week/restoflife — JAX path tracer",
     )
     d = Config()
     p.add_argument("-t", "--devices", type=int, default=d.n_devices,
@@ -54,7 +54,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Probabilistic path termination after 3 scatters "
                         "(unbiased; off by default for reference fidelity)")
     p.add_argument("--seed", type=int, default=d.seed)
-    p.add_argument("--backend", choices=["auto", "jnp", "pallas"], default=d.backend)
     p.add_argument("--no-bvh", dest="use_bvh", action="store_false", default=d.use_bvh)
     p.add_argument("-o", "--output", type=str, default="-",
                    help="Output PPM path ('-' = stdout, like the reference)")
@@ -84,7 +83,6 @@ def config_from_args(args: argparse.Namespace) -> Config:
         seed=args.seed,
         use_bvh=args.use_bvh,
         russian_roulette=args.russian_roulette,
-        backend=args.backend,
         verbose=args.verbose,
         profile_dir=args.profile_dir,
     )

@@ -1,7 +1,7 @@
-"""Render configuration — the TPU-native analogue of ``rt::Config``.
+"""Render configuration — the analogue of the reference's ``rt::Config``.
 
 Mirrors every knob of the reference Config (reference src/render.h:11-20)
-plus the TPU-specific ones (device count replaces ``nthreads``, a seed
+plus this build's own (device count replaces ``nthreads``, a seed
 replaces the implicit mt19937 default seed, ray-batch sizing controls
 device memory).  Printable like the reference's ``operator<<``
 (src/render.cpp:193-203), used by ``--dry-run``.
@@ -36,7 +36,7 @@ class Config:
     #: earth-globe image-texture demo scene (book 2 ch. 4.3; jnp path).
     globe_demo: bool = False
 
-    # -- TPU-native knobs --------------------------------------------------
+    # -- knobs of this build ----------------------------------------------
     #: devices used for rendering; the analogue of the reference's
     #: ``nthreads`` std::async fan-out (src/render.cpp:172-175).
     n_devices: int = 1
@@ -45,7 +45,8 @@ class Config:
     #: base PRNG seed (the reference's mt19937 is default-seeded; we make
     #: the seed explicit and reproducible).
     seed: int = 0
-    #: rays traced per device step; bounds peak HBM for the wavefront.
+    #: rays traced per device step; bounds peak device memory for the
+    #: wavefront.
     rays_per_batch: int = 1 << 18
     #: use the flattened stackless BVH (vs brute-force intersection).
     use_bvh: bool = True
@@ -53,7 +54,7 @@ class Config:
     #: low-throughput lanes after 3 scatters with unbiased 1/p boosts.
     #: OFF by default — the reference terminates by depth budget only
     #: (src/render.cpp:114-115), so default output stays reference-
-    #: faithful; enable for deep-depth throughput (see BASELINE.md).
+    #: faithful; enable for deep-depth throughput.
     russian_roulette: bool = False
     #: print diagnostics (BVH quality metric, timings) to stderr — the
     #: reference prints its stupid_volume every run (render.cpp:148).
@@ -61,10 +62,6 @@ class Config:
     #: jax.profiler trace output directory (TensorBoard-loadable); empty
     #: disables profiling.
     profile_dir: str = ""
-    #: backend for the bounce loop: "auto" (pallas megakernel on TPU for
-    #: sphere scenes, jnp otherwise), "jnp" (differentiable oracle) or
-    #: "pallas" (force the fused TPU megakernel forward path).
-    backend: str = "auto"
 
     @property
     def image_height(self) -> int:
@@ -82,6 +79,5 @@ class Config:
             f"max_child_rays: {self.max_child_rays}\n"
             f"n_devices: {self.n_devices}\n"
             f"seed: {self.seed}\n"
-            f"backend: {self.backend}\n"
             "}\n"
         )

@@ -1,7 +1,7 @@
 """Differentiable rendering: losses, gradients, and the sharded train step.
 
 The reference is a forward-only renderer; differentiability is this
-build's north-star extension (BASELINE.md): reverse-mode gradients of a
+build's main extension: reverse-mode gradients of a
 pixel loss w.r.t. scene geometry (sphere centers/radii, triangle verts)
 and materials (albedo/fuzz/ir), validated against finite differences.
 
@@ -208,22 +208,16 @@ def build_train_step(
     gradient is all-reduced over *both* axes before the update — the
     renderer's exact analogue of data-parallel gradient all-reduce.
 
-    ``renderer`` defaults to the jnp :func:`render_pixels`; pass
-    ``ops.pallas_grad.render_pixels_kernel`` for the kernel-speed
-    forward+backward (sphere AND triangle scenes to ~512k tris; large
-    meshes auto-route through the sorted-lane hierarchical path —
-    fwd+bwd is ~2.1x forward-only on v5e at 65k AND 360k tris, while
-    the jnp path OOMs at 90 GB at these sizes).
+    ``renderer`` defaults to :func:`render_pixels`, the one gradient
+    path (a ``lax.scan`` over bounces, checkpointed per bounce).
 
     ``overlap_grad_allreduce``: emit one partial scene-gradient ``psum``
     per bounce inside the backward scan (via :func:`psum_in_bwd`)
     instead of one monolithic all-reduce after the whole backward, so
     XLA's latency-hiding scheduler can overlap collectives with backward
-    compute.  Numerically identical by psum linearity (tested).  Works
-    with the jnp renderer AND the kernel renderer (the kernel path
-    buckets the table cotangents per bounce around each backward
-    pallas_call); a custom renderer must accept ``grad_reduce_axes``
-    or the partial application fails loudly — never a silent no-op.
+    compute.  Numerically identical by psum linearity (tested).  A
+    custom renderer must accept ``grad_reduce_axes`` or the partial
+    application fails loudly — never a silent no-op.
     """
     overlap = overlap_grad_allreduce
     if renderer is None:

@@ -1,5 +1,5 @@
 """Scene builders: the procedural cover scene, the OBJ mesh scene, and the
-small config-ladder scenes used by tests/benchmarks (BASELINE.md).
+small config-ladder scenes used by tests/benchmarks (BASELINE.json).
 
 ``cover_scene`` replicates the *distribution* of the reference's
 ``lots_of_balls`` (reference src/main.cpp:23-83): same grid, same material
@@ -207,8 +207,8 @@ def cornell_scene(aspect_ratio: float = 1.0, dtype=REAL) -> Tuple[Scene, Camera]
     beyond the reference's scope (sky-only lighting, no quads).
 
     Walls are triangle pairs wound so face normals point INTO the box
-    (the kernel keeps the reference's backface cull, det >= 1e-6 — see
-    /root/reference/src/common-model.cpp:104-125 — so interior rays
+    (the renderer keeps the reference's backface cull, det >= 1e-6 — see
+    reference src/common-model.cpp:104-125 — so interior rays
     always approach from the front side)."""
     cam = make_camera(
         lookfrom=(278.0, 278.0, -800.0),

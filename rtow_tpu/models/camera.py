@@ -6,7 +6,7 @@ field-of-view in degrees, focus plane spanned by ``horizontal``/
 ``vertical``, aperture jitter in the lens disk, and a ray time sampled
 uniformly in the shutter interval [t0, t1].  Instead of one scalar
 ``get_ray(s, t)`` per call, ``camera_rays`` emits a whole wavefront of
-rays from vectorised (s, t) arrays — one fused VPU pass per batch.
+rays from vectorised (s, t) arrays — one fused elementwise pass per batch.
 """
 from __future__ import annotations
 

@@ -2,10 +2,10 @@
 
 The reference dispatches ``Material::scatter`` through a virtual call per
 hit (reference src/common-model.h:115-121) and each concrete material
-draws from the global RNG.  On TPU, divergent per-lane dispatch is the
-enemy: with only three material kinds it is cheaper to evaluate *all*
-scatter rules on every live lane and ``select`` by the hit's material
-kind.  One shared unit-vector draw serves lambertian diffusion, metal
+draws from the global RNG.  Over a wavefront, divergent per-lane
+dispatch is the enemy: with only three material kinds it is cheaper to
+evaluate *all* scatter rules on every live lane and ``select`` by the
+hit's material kind.  One shared unit-vector draw serves lambertian diffusion, metal
 fuzz and dielectric fuzz (each reference material draws exactly one unit
 vector per scatter, so the per-lane draw count matches).
 
@@ -137,8 +137,7 @@ def background_color(scene, direction: jax.Array) -> jax.Array:
 def _hash01(xi, yi, zi):
     """Lattice hash -> uniform [0, 1): murmur3-style finalizer over the
     three integer coordinates.  Pure uint32 arithmetic — no permutation
-    tables, so it runs identically in jnp and inside Pallas kernels
-    (TPU gathers would serialize; the book's Perlin tables cannot)."""
+    tables (the book's Perlin noise reads two)."""
     h = (xi.astype(jnp.uint32) * np.uint32(0x9E3779B1)
          ^ yi.astype(jnp.uint32) * np.uint32(0x85EBCA77)
          ^ zi.astype(jnp.uint32) * np.uint32(0xC2B2AE3D))
@@ -216,8 +215,7 @@ def sphere_uv(nx, ny, nz):
 def image_albedo(texture, nx, ny, nz):
     """Bilinear texel lookup at the sphere (u, v) -> (..., 3) albedo.
 
-    JNP PATH ONLY: per-lane texel fetches are gathers (the pipeline
-    fences IMAGE scenes off the kernels).  The lookup is differentiable
+    Per-lane texel fetches are gathers.  The lookup is differentiable
     w.r.t. ``texture`` — the bilinear weights distribute the cotangent
     over the four texels (inverse texture painting)."""
     H, W = texture.shape[0], texture.shape[1]

@@ -1,4 +1,4 @@
-"""SoA scene representation — the TPU-native replacement for both of the
+"""SoA scene representation — the replacement for both of the
 reference's primitive dispatch models.
 
 The reference dispatches ray-primitive hits either through virtual calls
@@ -44,14 +44,11 @@ EMISSIVE = 3
 CHECKER = 4
 #: Marble/noise texture (book 2's Perlin chapter, gather-free): a
 #: Lambertian whose albedo lerps albedo<->albedo2 by a sine stripe
-#: displaced by hash-based value-noise turbulence (TPU-friendly: pure
-#: arithmetic, no permutation-table gathers).  Same columns as CHECKER.
+#: displaced by hash-based value-noise turbulence (pure arithmetic, no
+#: permutation tables).  Same columns as CHECKER.
 NOISE = 5
 #: Image texture (book 2 ch. 4.3): a Lambertian whose albedo is a
-#: bilinear lookup of Scene.texture at the sphere's (u, v).  JNP PATH
-#: ONLY — a texture lookup is a per-lane gather, which serializes on
-#: the TPU vector unit, so image scenes are fenced off the kernels
-#: (pipeline dispatch) instead of poisoning the hot loop.  The texels
+#: bilinear lookup of Scene.texture at the sphere's (u, v).  The texels
 #: are a traced leaf: gradients flow INTO the image (inverse texture
 #: painting).
 IMAGE = 6
@@ -126,11 +123,11 @@ class Scene:
     materials: Materials
     #: Constant-density media; ``volume_kinds`` (static "s"/"b" tuple)
     #: gates the bounce-loop volume code exactly like light_ids does
-    #: for NEE — scenes without media compile the unchanged kernels.
+    #: for NEE — scenes without media compile the unchanged bounce loop.
     volumes: Volumes = None
     #: "sky" (the reference's gradient) or an (r, g, b) tuple — static
     #: metadata, not a traced leaf: background choice changes compiled
-    #: control flow in the kernels, never carries gradients.
+    #: control flow in the bounce loop, never carries gradients.
     background: object = "sky"
     #: Static flag so lightless scenes compile the exact same bounce
     #: code as before EMISSIVE existed (no extra selects in the hot
@@ -141,7 +138,7 @@ class Scene:
     #: (ops/lights.py) via static indexing into the traced leaves.
     light_ids: tuple = ()
     #: Static flag: any textured material (CHECKER/NOISE) present —
-    #: gates the kernel's extended 16-param winner fetch + the texture
+    #: gates the second color column of the winner fetch + the texture
     #: selects.
     has_checker: bool = False
     #: Static tuple of "s" (sphere) / "b" (box) per volume row — the
@@ -149,9 +146,9 @@ class Scene:
     volume_kinds: tuple = ()
     #: (H, W, 3) texels for IMAGE materials (None when absent); a traced
     #: leaf — differentiable.  One image per scene (the book's earth
-    #: globe); the static ``has_image`` flag fences kernel dispatch.
+    #: globe); the static ``has_image`` flag gates the texel lookup.
     texture: object = None
-    #: Static flag: any IMAGE material present (jnp-only dispatch).
+    #: Static flag: any IMAGE material present.
     has_image: bool = False
 
     @property
@@ -230,7 +227,7 @@ class SceneBuilder:
         """Image-textured Lambertian (book 2 ch. 4.3): ``image`` is an
         (H, W, 3) array in [0, 1]; sphere (u, v) maps equirectangularly
         (u from atan2, v from acos — the book's convention).  One image
-        per scene; jnp path only (see IMAGE docstring)."""
+        per scene."""
         img = np.asarray(image, np.float64)
         if img.ndim != 3 or img.shape[2] != 3:
             raise ValueError(f"expected (H, W, 3) image, got {img.shape}")
@@ -288,7 +285,7 @@ class SceneBuilder:
         """Quadrilateral = two triangles (book 2's quad primitive; no
         separate kind needed — the tables stay uniform).  Corners in CCW
         order as seen from the normal side: ``cross(p10-p00, p11-p00)``
-        faces the viewer, and the kernel keeps the reference's backface
+        faces the viewer, and the renderer keeps the reference's backface
         cull (src/common-model.cpp:116)."""
         self.add_triangle(p00, p10, p11, material)
         self.add_triangle(p00, p11, p01, material)
@@ -300,9 +297,9 @@ class SceneBuilder:
         y-axis, then translate) applied to the VERTICES at build time.
 
         The book wraps primitives in ``translate``/``rotate_y`` nodes
-        that inverse-transform every ray (RTW book 2 ch. 8); on a TPU
-        per-ray indirection is control flow in the hot loop, while a
-        static pre-transformed vertex table is free — instancing is a
+        that inverse-transform every ray (RTW book 2 ch. 8); per-ray
+        indirection is control flow in the hot loop, while a static
+        pre-transformed vertex table is free — instancing is a
         build-time bake here."""
         x0, y0, z0 = (float(v) for v in p_min)
         x1, y1, z1 = (float(v) for v in p_max)
@@ -417,8 +414,7 @@ class SceneBuilder:
 
         if any(self._mat_kind[m] in (CHECKER, NOISE, IMAGE) for m in tmat):
             raise ValueError(
-                "textured materials are sphere-only: the kernel's triangle"
-                " table has no spare columns for the second color"
+                "textured materials are sphere-only"
             )
         n_lights = sum(
             1 for s in self._sph if self._mat_kind[s[3]] == EMISSIVE
@@ -426,7 +422,7 @@ class SceneBuilder:
         if n_lights > 16:
             raise ValueError(
                 f"at most 16 emissive primitives supported (got {n_lights})"
-                " — NEE unrolls the light loop in-kernel"
+                " — NEE unrolls the light loop at trace time"
             )
 
         import jax.numpy as jnp

@@ -2,7 +2,7 @@
 
 The reference's runtime is pure C++ (OBJ ingestion src/main.cpp:109-131,
 PPM output src/render.cpp:11-20, BVH build src/render.cpp:73-110).  This
-package gives the TPU framework the same native-speed host path: the
+package gives this framework the same native-speed host path: the
 shared library is compiled on first use with g++ (no pip deps, plain C
 ABI, ctypes binding) and every entry point has a pure-Python fallback in
 ``rtow_tpu.utils`` / ``rtow_tpu.ops.bvh``.
@@ -27,16 +27,14 @@ _load_failed = False
 
 
 def _lib_path() -> str:
-    """Per-source-content, per-host cache path for the compiled library.
+    """Per-source-content cache path for the compiled library.
 
     Keyed on a hash of the source (not mtime — git checkouts reset
-    mtimes) and built with -march=native into the user cache dir, so a
-    binary can never be stale or carry another host's ISA."""
-    digest = hashlib.sha256(open(_SRC, "rb").read()).hexdigest()[:16]
-    cache = os.path.join(
-        os.path.expanduser("~"), ".cache", "rtow_tpu", "native"
-    )
-    return os.path.join(cache, f"librtow_native-{digest}.so")
+    mtimes) and built with -march=native into ``_build`` beside the
+    source (git-ignored), so a binary can never be stale."""
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_HERE, "_build", f"librtow_native-{digest}.so")
 
 
 def _compile(lib_path: str) -> bool:

@@ -1,8 +1,8 @@
-// rtow_native — host-side runtime for the TPU path tracer.
+// rtow_native — host-side runtime for the path tracer.
 //
 // The reference implements its whole runtime in C++ (loader: tinyobjloader
 // via src/main.cpp:109-131; output: PPM P3 writer render.cpp:11-20,182-186;
-// acceleration build: BVHNode render.cpp:73-110).  The TPU framework keeps
+// acceleration build: BVHNode render.cpp:73-110).  This framework keeps
 // the *compute* path in JAX/XLA but gives these host-side components native
 // implementations with a plain C ABI consumed through ctypes:
 //

@@ -1,5 +1,5 @@
-"""Compute ops: vector math, intersection, BVH, the wavefront integrator,
-and Pallas TPU kernels for the hot paths.
+"""Compute ops: vector math, intersection, BVH, lights, media and the
+wavefront integrator.
 
 Submodules are imported directly (``from rtow_tpu.ops import integrator``)
 rather than re-exported here: ``models`` depends on ``ops.vec`` while

@@ -2,7 +2,7 @@
 
 The reference builds a pointer-chasing binary BVH of ``unique_ptr`` nodes
 and traverses it recursively per ray (reference src/render.cpp:22-110).
-TPU-native redesign:
+Redesign for a wavefront of lanes:
 
 * **Build on host** (NumPy, microseconds for these scenes): largest-extent
   centroid axis, median split — a strictly better variant of the

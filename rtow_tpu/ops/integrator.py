@@ -5,7 +5,7 @@ The reference estimates radiance with bounded recursion per ray
 anathema to XLA; here the whole wavefront advances together through an
 iterative bounce loop (``lax.fori_loop``) carrying masked per-lane state
 (origin, direction, time, throughput, radiance, alive) — the classic
-wavefront formulation of the megakernel.
+wavefront formulation of a path tracer.
 
 Semantics replicated exactly (SURVEY.md §3.2):
  * miss  -> radiance += throughput * sky gradient; lane dies,
@@ -91,8 +91,7 @@ def trace(
 
     ``max_depth`` is the reference's ``max_child_rays`` bounce budget
     (src/render.h:17).  ``nearest_hit`` defaults to the brute-force sweep;
-    the BVH traversal or a Pallas kernel slot in through the same
-    signature.
+    the BVH traversal slots in through the same signature.
 
     ``grad_reduce_axes``: mesh axis names to ``psum`` scene cotangents
     over *per bounce* in the backward scan (overlapped gradient
@@ -304,8 +303,11 @@ def trace(
 
     # D scatters require D+1 intersection tests (depth checked after the
     # hit test in the reference).  lax.scan (not while_loop) so the loop
-    # is reverse-mode differentiable with per-bounce checkpointing.
-    final, _ = jax.lax.scan(bounce, init, jnp.arange(max_depth + 1))
+    # is reverse-mode differentiable; jax.checkpoint makes the backward
+    # keep only each bounce's carry and recompute the bounce, instead of
+    # stacking every bounce's (lanes x primitives) residuals.
+    final, _ = jax.lax.scan(jax.checkpoint(bounce), init,
+                            jnp.arange(max_depth + 1))
     return final.radiance
 
 
@@ -337,12 +339,16 @@ def trace_progressive(
     scatters (each lane owns one pixel, so accumulation is elementwise).
     Total iterations ~ spp x mean_path + tail instead of ~max_path, a
     ~5x speedup at spp>=8 on the cover scene.  Forward-only
-    (while_loop); use :func:`trace` for gradients.
+    (while_loop); use :func:`trace` for gradients.  With no
+    ``nearest_hit`` the search is the sweep of ``ops.sphere_sweep`` where
+    it applies, the plain fused sweep otherwise.
     """
     from ..models.camera import camera_rays, pixel_coords
+    from . import sphere_sweep
 
     if nearest_hit is None:
-        nearest_hit = intersect.nearest_hit_bruteforce
+        nearest_hit = (sphere_sweep.nearest_hit if sphere_sweep.applies(scene)
+                       else intersect.nearest_hit_bruteforce)
     nee = scene.has_emissive and bool(scene.light_ids)
     if nee:
         from .lights import (

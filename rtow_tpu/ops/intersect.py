@@ -3,11 +3,12 @@
 The reference intersects one ray against one primitive at a time through
 virtual/variant dispatch (reference src/common-model.cpp:64-125).  Here
 intersection is a dense (rays × primitives) computation: every lane of the
-wavefront tests every primitive of a kind in one fused VPU pass, then a
+wavefront tests every primitive of a kind in one fused pass, then a
 single argmin picks the nearest hit.  The scene is tiny (hundreds of
 primitives, a few KB) while the wavefront is huge (10^5-10^6 rays), so the
-(L, N) sweep is the TPU-shaped formulation; the BVH (ops/bvh.py) replaces
-the full sweep with a masked subset for large meshes.
+(L, N) sweep keeps every lane busy with no divergence; the BVH
+(ops/bvh.py) replaces the full sweep with per-lane traversal for large
+meshes.
 
 All functions are shape-polymorphic over a leading batch axis L and are
 differentiable w.r.t. scene geometry.
@@ -52,11 +53,10 @@ def sphere_ts(
 
     # Broadcast (L,1,3) vs (N,3) -> every op elementwise over (L,N[,3]), so
     # XLA fuses the whole quadratic into the downstream min/argmin reduction
-    # with no (L,N) HBM materialisation.  A (L,3)@(3,N) MXU formulation was
-    # measured SLOWER (7.2 vs 5.5 ms/262k-lane bounce on v5e): matmul
-    # outputs break fusion, and f32 precision is mandatory here (the
-    # expanded quadratic catastrophically cancels for the |c|~1e3 ground
-    # sphere under bf16 MXU passes).
+    # with no (L,N) materialisation in device memory.  No matmul form:
+    # matmul outputs break that fusion, and f32 precision is mandatory
+    # here (the expanded quadratic catastrophically cancels for the
+    # |c|~1e3 ground sphere at reduced matmul precision).
     center = c0[..., None, :, :] + tm[..., None] * dc[..., None, :, :]  # (L,N,3)
     oc = o[..., None, :] - center  # (L, N, 3)
     a = vec.length2(d)[..., None]  # (L, 1)
@@ -118,6 +118,14 @@ def triangle_ts(
     return jnp.where(valid, t, jnp.inf)
 
 
+def fetch_rows(table: jax.Array, idx: jax.Array) -> jax.Array:
+    """Row ``idx`` of a (K, C) parameter table per lane -> (..., C).
+
+    A plain gather.  Kept as its own function so that tests can swap in
+    a one-hot matmul reference and require identical hit records."""
+    return table[idx]
+
+
 def hit_record_from(
     scene: Scene,
     origin: jax.Array,
@@ -132,17 +140,15 @@ def hit_record_from(
     ``prim_idx`` indexes spheres first then triangles (global primitive
     id); lanes with ``t == +inf`` are misses.
 
-    TPU note: the winner's parameters are fetched with a **one-hot
-    matmul** (``onehot(idx) @ param_table``) instead of per-lane index
-    gathers — measured 7.5x faster on v5e (2.1 vs 15.8 ms per 262k-lane
-    bounce): TPU gathers serialize, MXU matmuls don't.  Gradients flow
-    into the table and back into the scene leaves exactly as with
-    gathers (the one-hot factor is constant).
+    The winner's parameters are one row gathered per lane from a packed
+    (N, 13) sphere / (M, 15) triangle table; gradients scatter-add back
+    into the table and on into the scene leaves.  A lane whose winner is
+    of the other kind reads a clamped row that the final ``where``
+    discards.
     """
     n_sph = scene.n_spheres
     n_tri = scene.n_triangles
     dtype = origin.dtype
-    hi = jax.lax.Precision.HIGHEST
     hit = jnp.isfinite(t)
     t_safe = jnp.where(hit, t, 1.0)
     point = origin + t_safe[..., None] * direction
@@ -172,8 +178,7 @@ def hit_record_from(
             ],
             axis=1,
         )  # (N, 13)
-        oh_s = (prim_idx[..., None] == jnp.arange(n_sph)).astype(dtype)
-        ps = jnp.einsum("...n,nk->...k", oh_s, sph_table, precision=hi)
+        ps = fetch_rows(sph_table, jnp.clip(prim_idx, 0, n_sph - 1))
         c0, dc, r = ps[..., 0:3], ps[..., 3:6], ps[..., 6]
         center = c0 + time[..., None] * dc
         # Outward unit normal (p-c)/|r|, then the reference's hollow-glass
@@ -192,8 +197,7 @@ def hit_record_from(
             ],
             axis=1,
         )  # (M, 15)
-        oh_t = ((prim_idx[..., None] - n_sph) == jnp.arange(n_tri)).astype(dtype)
-        pt = jnp.einsum("...m,mk->...k", oh_t, tri_table, precision=hi)
+        pt = fetch_rows(tri_table, jnp.clip(prim_idx - n_sph, 0, n_tri - 1))
         va, e1 = pt[..., 0:3], pt[..., 3:6] - pt[..., 0:3]
         e2 = pt[..., 6:9] - pt[..., 0:3]
         n_t = vec.normalize(vec.cross(e1, e2))
@@ -271,8 +275,7 @@ def nearest_hit_bruteforce(
             triangle_ts(scene.triangles, origin, direction, tmin, cull_backfaces=cull_backfaces)
         )
     t_all = jnp.concatenate(ts, axis=-1) if len(ts) > 1 else ts[0]
-    # min + argmin both fuse into the same (L, N) reduction loop;
-    # take_along_axis would be a per-lane gather (slow on TPU).
+    # min + argmin both fuse into the same (L, N) reduction loop.
     prim_idx = jnp.argmin(t_all, axis=-1).astype(jnp.int32)
     t = jnp.min(t_all, axis=-1)
     return hit_record_from(

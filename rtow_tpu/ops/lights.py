@@ -31,8 +31,7 @@ bookkeeping survives the triangle table's Morton reordering, and a
 culled back-facing light is correctly "transparent" under this test
 (its contribution is zeroed by the cos_alpha term instead).
 
-Scope: forward rendering (jnp integrator + both megakernel paths) AND
-the differentiable jnp path (``diff.render_pixels(nee=True)``).  Under
+Scope: forward rendering AND the differentiable path (``diff.render_pixels(nee=True)``).  Under
 common random numbers the light-sampling distribution is independent of
 material parameters, so NEE gradients w.r.t. albedo / emitted radiance
 are exact (FD-gated, tests/test_nee_grad.py); gradients w.r.t. LIGHT
@@ -47,8 +46,7 @@ class of omission as the visibility delta terms the plain estimator
 already drops.  Every clamped sqrt in
 this module uses the double-where guard (forward value unchanged;
 backward never sees sqrt'(0) = inf, whose product with a zero cotangent
-is NaN) so reverse mode is finite on degenerate lanes.  The Pallas
-gradient kernels keep the plain estimator.
+is NaN) so reverse mode is finite on degenerate lanes.
 """
 from __future__ import annotations
 
@@ -63,8 +61,6 @@ from ..models.scene import Scene
 #: triangle: 1-3 v0, 4-6 e1, 7-9 e2, 10 area
 #: cols 11-13: emitted radiance (col 0 unused; light KINDS are static —
 #: scene.light_ids metadata — so no kind column is consulted at trace).
-#: Volume rows (ops/volumes.pack_volume_rows, also 14 wide) ride BEHIND
-#: these rows in the kernels' SMEM operand.
 MAX_LIGHTS = 16
 
 

@@ -1,7 +1,7 @@
 """Batched 3-vector math on ``(..., 3)`` arrays.
 
 The reference delegates to glm on scalar dvec3 (reference src/vec3.h:6-8);
-here every op is batched so XLA maps it onto the VPU across whole ray
+here every op is batched so XLA maps it elementwise across whole ray
 wavefronts.  Conventions: vectors are trailing-axis-3 arrays; ``dot``
 keeps the reduced axis so results broadcast back cleanly.
 """

@@ -27,8 +27,7 @@ table weight ``w`` folds emit/(pi * pdf) — see ops/lights.py) and the
 MIS balance weight uses pdf_B = 1/(4 pi).
 
 All helpers are pure elementwise f32 arithmetic over per-lane component
-arrays + scalar reads from a (V, 8) table, so the SAME code runs in the
-jnp integrator and inside the Pallas kernels (like ops/lights.py).
+arrays + scalar reads from a (V, 14) table (like ops/lights.py).
 """
 from __future__ import annotations
 
@@ -37,8 +36,7 @@ import numpy as np
 
 from ..models.scene import Scene
 
-#: volume-table rows are (V, 14) f32 (matching the light rows' width
-#: so both pack into one kernel operand):
+#: volume-table rows are (V, 14) f32 (the light rows' width):
 #: sphere ("s"): 0-2 center, 3 radius
 #: box ("b"):    0-2 min corner, 3-5 max corner
 #: rotated box ("r"): 0-5 LOCAL min/max, 7 rotate_y radians,
@@ -71,36 +69,6 @@ def build_volume_table(scene: Scene):
             v.translate[k].astype(f32),
         ]))
     return jnp.stack(rows), v.albedo.astype(f32)
-
-
-def pack_volume_rows(scene: Scene):
-    """The kernels' SMEM rows — identical to :func:`build_volume_table`
-    (packed BEHIND the light rows in the same operand, both 14 wide, so
-    the kernels need no new input; the row offset is a static param)."""
-    return build_volume_table(scene)[0]
-
-
-class _OffsetRows:
-    """[k, c] -> ref[row0 + k, c]: lets the shared samplers index the
-    volume rows packed behind the light rows in one kernel operand."""
-
-    def __init__(self, ref, row0):
-        self._ref, self._row0 = ref, row0
-
-    def __getitem__(self, idx):
-        r, c = idx
-        return self._ref[r + self._row0, c]
-
-
-class _OffsetAlbedo:
-    """[k, j] -> ref[row0 + k, 8 + j] (the packed albedo columns)."""
-
-    def __init__(self, ref, row0):
-        self._ref, self._row0 = ref, row0
-
-    def __getitem__(self, idx):
-        r, c = idx
-        return self._ref[r + self._row0, 8 + c]
 
 
 def _interval(table, k, kind, ox, oy, oz, dx, dy, dz):

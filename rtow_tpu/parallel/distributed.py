@@ -1,12 +1,12 @@
 """Multi-host bring-up: ``jax.distributed`` initialisation + global mesh.
 
 The reference is strictly single-process (its only fan-out is
-``std::async`` threads, reference src/render.cpp:172-175).  The TPU
+``std::async`` threads, reference src/render.cpp:172-175).  This
 framework scales across hosts with JAX's built-in distributed runtime:
 every host calls :func:`initialize` (coordinator address via env or
-args), after which ``jax.devices()`` spans the whole pod slice and the
+args), after which ``jax.devices()`` spans every host's devices and the
 same (tile, spp) mesh code from ``parallel.mesh`` lays the render over
-ICI within a slice and DCN across hosts — XLA inserts the collectives.
+them — XLA inserts the collectives.
 
 Host-local framebuffer assembly: ``render_sharded`` returns the full
 (pixel, 3) sums on every host (the psum/all-gather semantics of
@@ -28,8 +28,8 @@ def initialize(
 ) -> None:
     """Bring up the multi-host runtime (idempotent, single-host no-op).
 
-    With no arguments, JAX auto-detects cluster env (TPU metadata /
-    JAX_COORDINATOR_ADDRESS etc.); explicit args override for manual
+    With no arguments, JAX reads the cluster from its environment
+    (JAX_COORDINATOR_ADDRESS etc.); explicit args override for manual
     launches: ``initialize("host0:1234", 2, rank)``.
     """
     if num_processes is None and coordinator_address is None \

@@ -1,20 +1,21 @@
 """Device-mesh construction for sharded rendering.
 
 The reference's only parallelism is a ``std::async`` fan-out over
-samples-per-pixel shards (reference src/render.cpp:172-175).  The
-TPU-native layout is a 2-D ``jax.sharding.Mesh``:
+samples-per-pixel shards (reference src/render.cpp:172-175).  Here the
+layout is a 2-D ``jax.sharding.Mesh``:
 
 * axis ``"tile"`` — pixel-domain decomposition: each device owns a
   contiguous block of pixels (the scene is tiny and replicated, so this
   axis scales the framebuffer),
 * axis ``"spp"``  — sample decomposition: devices along this axis trace
   disjoint sample shards of the *same* pixels and ``psum`` their
-  radiance over ICI (the direct analogue of the reference's per-thread
+  radiance (the direct analogue of the reference's per-thread
   image sum, src/render.cpp:176-180, minus the integer-division spp loss).
 
 Multi-host: `jax.distributed.initialize()` before mesh construction makes
 `jax.devices()` span hosts; the same mesh code then lays tiles×spp over
-the full pod (DCN handled by XLA).
+every device (XLA inserts the collectives).  The cards of one host are
+joined all to all, so the mesh follows the algorithm alone.
 """
 from __future__ import annotations
 

@@ -1,13 +1,13 @@
 """Mesh-sharded rendering: ``shard_map`` over (tile, spp) + ``psum``.
 
-The TPU-native replacement for the reference's ``std::async`` fan-out
+The replacement for the reference's ``std::async`` fan-out
 (reference src/render.cpp:172-180):
 
 * the scene/BVH/camera are replicated (a few KB — same as the reference's
   shared read-only scene),
 * devices along the ``tile`` axis own disjoint contiguous pixel blocks,
 * devices along the ``spp`` axis trace disjoint sample shards of their
-  pixel block and ``psum`` their radiance accumulator over ICI — the
+  pixel block and ``psum`` their radiance accumulator — the
   collective analogue of the reference's per-thread image sum,
 * spp accounting is exact: remainder samples are masked, never dropped
   (the reference silently floor-divides spp across threads,
@@ -20,7 +20,6 @@ schedule — unlike the reference's racy shared mt19937.
 from __future__ import annotations
 
 import functools
-import os
 import sys
 import time as _time
 from typing import Callable, Optional
@@ -90,7 +89,7 @@ def _device_render_block(
     fb0 = jnp.zeros((ppc * n_chunks, 3), dtype=REAL)
     fb = jax.lax.fori_loop(0, n_chunks, chunk_body, fb0)[:ppt]
     # Collective sum over sample shards — the reference's image sum
-    # (src/render.cpp:176-180) as one ICI psum.
+    # (src/render.cpp:176-180) as one psum.
     return jax.lax.psum(fb, SPP_AXIS)
 
 
@@ -148,228 +147,6 @@ def build_sharded_step(
     return step, meta
 
 
-@functools.lru_cache(maxsize=32)
-def _sharded_pallas_step(flat_mesh, width: int, height: int, tpd: int):
-    """Cached jitted shard-mapped megakernel step (re-jitting per call
-    costs a retrace — measured 16% overhead at n=1)."""
-    from ..ops.pallas_megakernel import render_blocks_pallas
-
-    def dev_fn(scene, camera, seed, spp, max_depth):
-        k = jax.lax.axis_index("dev")
-        return render_blocks_pallas(
-            scene, camera, seed, width=width, height=height, spp=spp,
-            max_depth=max_depth, tile0=k * tpd, n_tiles_local=tpd,
-        )
-
-    sharded = shard_map(
-        dev_fn, mesh=flat_mesh,
-        in_specs=(P(), P(), P(), P(), P()),
-        out_specs=(P("dev", None), P("dev", None), P("dev", None)),
-        check_vma=False,
-    )
-    return jax.jit(sharded)
-
-
-def render_sharded_pallas(
-    scene: Scene,
-    camera: Camera,
-    cfg: Config,
-    seed: int = None,
-    mesh: Optional[Mesh] = None,
-    progress: bool = False,
-) -> np.ndarray:
-    """Mesh-sharded megakernel render: devices own contiguous tile ranges.
-
-    The Pallas analogue of :func:`render_sharded`: the (tile, spp) mesh
-    is flattened to one device axis, each device runs the megakernel over
-    its image-tile range (the kernel's in-VMEM progressive loop handles
-    the spp dimension), and the block framebuffers concatenate over the
-    device axis — no collective needed beyond the implicit all-gather of
-    the output sharding.
-    """
-    from ..ops.pallas_megakernel import (
-        LANES, TILE_ROWS, render_blocks_pallas, unblock_image,
-    )
-
-    if mesh is None:
-        mesh = make_mesh(cfg.n_devices, cfg.samples_per_pixel)
-    if seed is None:
-        seed = cfg.seed
-    devs = int(np.prod(list(mesh.shape.values())))
-    flat = Mesh(np.asarray(mesh.devices).reshape(-1), ("dev",))
-
-    width, height = cfg.image_width, cfg.image_height
-    tiles_x = -(-width // LANES)
-    tiles_y = -(-height // TILE_ROWS)
-    tiles_total = tiles_x * tiles_y
-    tpd = -(-tiles_total // devs)  # tiles per device (tail masked in-kernel)
-
-    step = _sharded_pallas_step(flat, width, height, tpd)
-    t0 = _time.perf_counter()
-    r, g, b = step(scene, camera, jnp.int32(seed),
-                   jnp.int32(cfg.samples_per_pixel),
-                   jnp.int32(cfg.max_child_rays))
-    jax.block_until_ready(r)
-    elapsed = _time.perf_counter() - t0
-    if progress:
-        from ..utils.profiling import RenderStats
-
-        stats = RenderStats(elapsed, width * height, cfg.samples_per_pixel,
-                            cfg.max_child_rays, backend="pallas",
-                            n_devices=devs)
-        print(stats.summary(), file=sys.stderr)
-    # Devices may pad past tiles_total; crop block rows before unblocking.
-    rows = tiles_total * TILE_ROWS
-    img = unblock_image(r[:rows], g[:rows], b[:rows], width=width, height=height)
-    fb = np.asarray(img, dtype=np.float64)
-    return fb.reshape(height, width, 3) / cfg.samples_per_pixel
-
-
-@functools.lru_cache(maxsize=16)
-def _sharded_wavefront_step(flat_mesh, width: int, height: int, spp: int,
-                            max_depth: int, ppd: int, ppc: int, lpp: int,
-                            n_chunks_local: int, counts, cull: bool,
-                            emissive: bool = False, bg=None, nee_kinds=(),
-                            checker: bool = False, vol_kinds=(),
-                            vol_row0: int = 0, morton_px: bool = False):
-    """Cached jitted shard-mapped sorted-wavefront step: each device owns
-    a contiguous pixel range and runs its own sort+bounce chunk loop.
-
-    ``morton_px=True`` reads chunk pixel ids from the replicated
-    ``pix_perm`` operand (Morton-ordered pixel permutation, sentinel-
-    padded): chunks then cover compact ~square image tiles, tightening
-    the sorted tiles' block-cull unions (ops/wavefront_sorted.py
-    _morton_pixel_perm)."""
-    from ..ops.wavefront_sorted import trace_wavefront_sorted
-
-    n_pixels = width * height
-
-    def dev_fn(tables, bmin, inv_ext, camera, key, seed, pix_perm):
-        d = jax.lax.axis_index("dev")
-        dev_key = jax.random.fold_in(key, d)
-
-        def chunk_body(c, fb):
-            pix0 = d * ppd + c * ppc
-            if morton_px:
-                pixel_ids = jax.lax.dynamic_slice(pix_perm, (pix0,), (ppc,))
-            else:
-                pixel_ids = pix0 + jnp.arange(ppc, dtype=jnp.int32)
-            pix_safe = jnp.minimum(pixel_ids, n_pixels - 1)
-            sums = trace_wavefront_sorted(
-                None, camera, jax.random.fold_in(dev_key, c), pix_safe,
-                seed + (d * 131071 + c) * 7919,
-                spp=spp, max_depth=max_depth, width=width, height=height,
-                cull_backfaces=cull, tables=tables, counts=counts,
-                bmin=bmin, inv_ext=inv_ext, lanes_per_pixel=lpp,
-                emissive=emissive, bg=bg, nee_kinds=nee_kinds,
-                checker=checker, vol_kinds=vol_kinds, vol_row0=vol_row0,
-                # Global (psum'd) bounce-loop trip counts: every device
-                # launches the SAME kernel count, which the Pallas
-                # interpret-mode per-call barrier requires (local counts
-                # deadlocked the 8-device dryrun, MULTICHIP_r03) and
-                # which costs one scalar psum per bounce on hardware.
-                sync_axis="dev",
-            )
-            sums = jnp.where((pixel_ids < n_pixels)[:, None], sums, 0.0)
-            return jax.lax.dynamic_update_slice(fb, sums, (c * ppc, 0))
-
-        fb0 = jnp.zeros((ppc * n_chunks_local, 3), jnp.float32)
-        return jax.lax.fori_loop(0, n_chunks_local, chunk_body, fb0)[:ppd]
-
-    sharded = shard_map(
-        dev_fn, mesh=flat_mesh,
-        in_specs=(P(), P(), P(), P(), P(), P(), P()),
-        out_specs=P("dev", None),
-        check_vma=False,
-    )
-    return jax.jit(sharded)
-
-
-def render_sharded_wavefront(
-    scene: Scene,
-    camera: Camera,
-    cfg: Config,
-    key=None,
-    mesh: Optional[Mesh] = None,
-    progress: bool = False,
-    cull_backfaces: bool = True,
-) -> np.ndarray:
-    """Mesh-sharded sorted-wavefront render for large meshes.
-
-    Pixel-domain decomposition over a flat device axis (the scene tables
-    are replicated — they are small next to HBM); each device sorts and
-    bounces its own lanes, so the only cross-device communication is the
-    implicit all-gather of the output sharding — same layout as
-    :func:`render_sharded_pallas`."""
-    from ..ops.wavefront_sorted import TILE, _scene_tables
-
-    if mesh is None:
-        mesh = make_mesh(cfg.n_devices, cfg.samples_per_pixel)
-    if key is None:
-        key = jax.random.key(cfg.seed)
-    devs = int(np.prod(list(mesh.shape.values())))
-    flat = Mesh(np.asarray(mesh.devices).reshape(-1), ("dev",))
-
-    width, height = cfg.image_width, cfg.image_height
-    spp = cfg.samples_per_pixel
-    n_pixels = width * height
-    ppd = -(-n_pixels // devs)  # pixels per device (tail masked)
-    # Lane-per-sample layout (see render_wavefront: lane-per-pixel
-    # regeneration measured 2.1x worse — coherence needs same-pixel
-    # same-bounce samples packed into tiles).
-    lpp = spp
-    ppc = min(max(cfg.rays_per_batch // spp, 1), ppd)
-    ppc = max(ppc, -(-TILE // spp))
-    n_chunks_local = -(-ppd // ppc)
-
-    nee_kinds = (tuple(k for k, _ in scene.light_ids)
-                 if scene.has_emissive else ())
-    morton_px = os.environ.get("RTOW_WF_MORTON_PX", "1") == "1"
-    perm_len = (devs - 1) * ppd + n_chunks_local * ppc
-    if morton_px:
-        from ..ops.wavefront_sorted import _morton_pixel_perm
-
-        perm = np.full((perm_len,), n_pixels, np.int32)
-        perm[:n_pixels] = _morton_pixel_perm(width, height)
-        pix_perm = jnp.asarray(perm)
-    else:
-        pix_perm = jnp.zeros((1,), jnp.int32)
-    from ..ops import pallas_megakernel as _mk
-
-    # Table build + shard_map trace share the per-scene TRI_BLOCK pick
-    # (round 5) exactly like the single-device render_wavefront.
-    with _mk.tri_block_for(scene.n_triangles):
-        tables, counts, bmin, inv_ext = _scene_tables(scene)
-        step = _sharded_wavefront_step(
-            flat, width, height, spp, cfg.max_child_rays, ppd, ppc, lpp,
-            n_chunks_local, counts, cull_backfaces, scene.has_emissive,
-            None if scene.background == "sky" else scene.background,
-            nee_kinds, scene.has_checker, scene.volume_kinds,
-            len(nee_kinds), morton_px,
-        )
-        t0 = _time.perf_counter()
-        fb = step(tables, bmin, inv_ext, camera, key, jnp.int32(cfg.seed),
-                  pix_perm)
-        fb.block_until_ready()
-    elapsed = _time.perf_counter() - t0
-    if progress:
-        from ..utils.profiling import RenderStats
-
-        stats = RenderStats(elapsed, n_pixels, spp, cfg.max_child_rays,
-                            backend="pallas-sorted", n_devices=devs)
-        print(stats.summary(), file=sys.stderr)
-
-    fb_np = np.asarray(fb, dtype=np.float64)
-    if morton_px:
-        out = np.zeros((n_pixels, 3), np.float64)
-        m = perm[: fb_np.shape[0]] < n_pixels
-        out[perm[: fb_np.shape[0]][m]] = fb_np[m]
-        fb_np = out
-    else:
-        fb_np = fb_np[:n_pixels]
-    return fb_np.reshape(height, width, 3) / spp
-
-
 def render_sharded(
     scene: Scene,
     camera: Camera,
@@ -396,7 +173,7 @@ def render_sharded(
 
         stats = RenderStats(
             elapsed, meta["n_pixels"], cfg.samples_per_pixel,
-            cfg.max_child_rays, backend="jnp",
+            cfg.max_child_rays,
             n_devices=meta["tile_shards"] * meta["spp_shards"],
         )
         print(stats.summary(), file=sys.stderr)

@@ -1,9 +1,11 @@
 """Floating-point policy for the renderer.
 
 The reference traces in float64 (``rt::vec3 = glm::dvec3``, reference
-src/vec3.h:6-8).  TPUs have no native f64, so the TPU-native policy is:
+src/vec3.h:6-8).  Accelerators run float32 far faster than float64, so
+the policy is:
 
-* device compute defaults to **float32** (VPU/MXU native),
+* device compute defaults to **float32** (matmuls at HIGHEST precision,
+  never a reduced-precision tensor-core mode),
 * host-side scene generation stays in numpy float64 and is cast on upload,
 * tests may flip to float64 on CPU (``jax_enable_x64``) to validate the
   math against high-precision oracles.
@@ -17,8 +19,3 @@ REAL = jnp.float32
 
 #: Index dtype for primitive/material ids.
 INDEX = jnp.int32
-
-
-def real_dtype():
-    """The dtype used for ray/scene math on device."""
-    return REAL

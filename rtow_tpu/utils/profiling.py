@@ -2,7 +2,7 @@
 
 The reference's observability is a wall-clock print and a scanline ticker
 on stderr (reference src/render.cpp:139-141, :154, :188-190) plus ad-hoc
-Linux ``perf`` (perf.data in .gitignore:6).  TPU-native equivalents:
+Linux ``perf`` (perf.data in .gitignore:6).  Equivalents here:
 
 * ``RenderStats`` — wall time + primary-ray and estimated total-ray
   throughput (the Mrays/s the north star tracks),
@@ -32,7 +32,6 @@ class RenderStats:
     n_pixels: int
     spp: int
     max_depth: int
-    backend: str = "jnp"
     n_devices: int = 1
 
     @property
@@ -44,12 +43,14 @@ class RenderStats:
         return self.primary_rays / self.wall_s / 1e6
 
     def summary(self) -> str:
-        dev = f", {self.n_devices} devices" if self.n_devices > 1 else ""
+        import jax
+
+        n = f"{self.n_devices} x " if self.n_devices > 1 else ""
         return (
             f"Done in {int(self.wall_s * 1000)}ms "
             f"({self.primary_mrays_per_s:.2f} Mprimary-rays/s, "
             f"{self.n_pixels}px x {self.spp}spp, depth {self.max_depth}, "
-            f"{self.backend}{dev})"
+            f"{n}{jax.devices()[0].device_kind})"
         )
 
 

@@ -3,13 +3,13 @@
 The reference funnels every random draw through one global, unseeded,
 *unsynchronised* ``std::mt19937`` (reference src/random-utils.cpp:6-9) —
 a data race under threads and a hidden sequencing dependency between scene
-generation and rendering.  The TPU-native replacement is stateless,
+generation and rendering.  The replacement here is stateless,
 counter-based sampling: every consumer derives its own key as
 ``fold_in(base, pixel/sample/bounce/purpose)`` so the stream is
 race-free and bit-reproducible regardless of device count or schedule.
 
 Sampling routines are *analytic* (no rejection loops): rejection sampling
-is control-flow divergence that TPUs cannot vectorise.  Note the reference's
+is control-flow divergence across lanes.  Note the reference's
 ``random_unit_vector`` (src/random-utils.cpp:23-33) is biased — it samples
 the positive octant of [0,1]^3 and never normalises.  We implement the
 book-correct distributions instead (documented divergence, SURVEY.md §7

@@ -2,15 +2,14 @@
 book 1).  A CHECKER material is a Lambertian whose albedo alternates by
 the sign of prod(sin(scale * p)) at the hit point; the odd color lives
 in Materials.albedo2 (sphere table cols 13-15), the scale rides the
-otherwise dielectric-only ir column.  Sphere-only (the kernel triangle
-table has no spare columns — build() rejects checker on triangles)."""
+otherwise dielectric-only ir column.  Sphere-only (build() rejects
+checker on triangles)."""
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from rtow_tpu.config import Config
 from rtow_tpu.models.camera import make_camera
@@ -68,31 +67,19 @@ def test_checker_cells_exact():
     np.testing.assert_allclose(a[1], EVEN, atol=1e-6)
 
 
-def test_checker_kernel_matches_jnp():
-    from rtow_tpu.ops.pallas_megakernel import render_spheres_pallas
-
+def test_checker_pattern_alternates():
     scene, cam = _scene()
-    W = H = 24
-    spp, depth = 32, 4
-    cfg = Config(image_width=W, aspect_ratio=1.0, samples_per_pixel=spp,
-                 max_child_rays=depth, backend="jnp", seed=5)
-    img_jnp = np.asarray(render(scene, cam, cfg))
-    with pltpu.force_tpu_interpret_mode():
-        sums = render_spheres_pallas(scene, cam, 5, width=W, height=H,
-                                     spp=spp, max_depth=depth)
-    img_k = np.asarray(sums).reshape(H, W, 3) / spp
-    assert abs(img_jnp.mean() - img_k.mean()) < 0.02
-    assert np.abs(img_jnp - img_k).mean() < 0.06
+    cfg = Config(image_width=24, aspect_ratio=1.0, samples_per_pixel=32,
+                 max_child_rays=4, seed=5)
+    img = np.asarray(render(scene, cam, cfg))
+    assert np.isfinite(img).all()
     # The pattern must actually alternate (both cells visible).
-    assert img_jnp[-6:, :, 0].max() - img_jnp[-6:, :, 0].min() > 0.2
+    assert img[-6:, :, 0].max() - img[-6:, :, 0].min() > 0.2
 
 
-def test_marble_kernel_matches_jnp():
-    """NOISE (hash-based marble) agrees between the jnp integrator and
-    the megakernel; the hash lattice is pure arithmetic, so both paths
-    evaluate the exact same texture."""
-    from rtow_tpu.ops.pallas_megakernel import render_spheres_pallas
-
+def test_marble_veins_show():
+    """NOISE (hash-based marble): the veins must actually show — the
+    red channel varies over the ground."""
     cam = make_camera(lookfrom=(0.0, 1.5, 3.0), lookat=(0.0, 0.3, 0.0),
                       fov_degrees=45.0, aspect_ratio=1.0, aperture=0.0,
                       focus_dist=3.0)
@@ -102,36 +89,26 @@ def test_marble_kernel_matches_jnp():
     b.add_sphere((0.0, 0.5, 0.0), 0.5, marble)
     scene = b.build()
     assert scene.has_checker  # the textured flag covers NOISE too
-    W = H = 24
-    spp, depth = 32, 3
-    cfg = Config(image_width=W, aspect_ratio=1.0, samples_per_pixel=spp,
-                 max_child_rays=depth, backend="jnp", seed=7)
-    img_jnp = np.asarray(render(scene, cam, cfg))
-    with pltpu.force_tpu_interpret_mode():
-        sums = render_spheres_pallas(scene, cam, 7, width=W, height=H,
-                                     spp=spp, max_depth=depth)
-    img_k = np.asarray(sums).reshape(H, W, 3) / spp
-    assert abs(img_jnp.mean() - img_k.mean()) < 0.02
-    assert np.abs(img_jnp - img_k).mean() < 0.06
-    # Veins must actually show: red channel varies over the ground.
-    assert img_jnp[-8:, :, 0].std() > 0.03
+    cfg = Config(image_width=24, aspect_ratio=1.0, samples_per_pixel=32,
+                 max_child_rays=3, seed=7)
+    img = np.asarray(render(scene, cam, cfg))
+    assert np.isfinite(img).all()
+    assert img[-8:, :, 0].std() > 0.03
 
 
 def test_checker_grads_flow_to_both_colors():
-    """Kernel-path gradients reach albedo AND albedo2 (the odd color
-    rides the sphere table's cols 13-15 through the one-hot fetch and
-    its backward accumulation)."""
-    from rtow_tpu.ops.pallas_grad import loss_and_grad_kernel
+    """Gradients reach albedo AND albedo2 (the odd color rides the
+    winner's parameter row through the fetch and its backward
+    scatter-add)."""
+    from rtow_tpu.diff import loss_and_grad
 
     scene, cam = _scene()
     w = h = 8
     pix = jnp.arange(w * h, dtype=jnp.int32)
     target = jnp.zeros((w * h, 3))
-    with pltpu.force_tpu_interpret_mode():
-        loss, grads = loss_and_grad_kernel(
-            scene, cam, jax.random.key(3), target, pix, width=w, height=h,
-            spp=8, max_depth=2, seed=17,
-        )
+    loss, grads = jax.jit(lambda s: loss_and_grad(
+        s, cam, jax.random.key(3), target, pix, width=w, height=h, spp=8,
+        max_depth=2))(scene)
     assert np.isfinite(float(loss))
     g1 = np.abs(np.asarray(grads.materials.albedo[0])).max()
     g2 = np.abs(np.asarray(grads.materials.albedo2[0])).max()
@@ -139,16 +116,16 @@ def test_checker_grads_flow_to_both_colors():
 
 
 def test_checker_grad_matches_fd():
-    """FD gate for the odd color through the kernel path: d(MSE)/d(odd
-    red) is linear in single-bounce terms, so central FD agrees
-    tightly (common random numbers via the counter RNG)."""
-    from rtow_tpu.ops.pallas_grad import loss_and_grad_kernel
+    """FD gate for the odd color: d(MSE)/d(odd red) is linear in
+    single-bounce terms, so central FD agrees tightly (common random
+    numbers via the counter RNG)."""
+    from rtow_tpu.diff import loss_and_grad
 
     scene, cam = _scene()
     w = h = 8
     pix = jnp.arange(w * h, dtype=jnp.int32)
     target = jnp.zeros((w * h, 3))
-    kw = dict(width=w, height=h, spp=8, max_depth=2, seed=17, jitter=False)
+    kw = dict(width=w, height=h, spp=8, max_depth=2, jitter=False)
     key = jax.random.key(3)
 
     def with_odd(r):
@@ -158,14 +135,11 @@ def test_checker_grad_matches_fd():
         )
         return dataclasses.replace(scene, materials=mats)
 
-    with pltpu.force_tpu_interpret_mode():
-        _, grads = loss_and_grad_kernel(scene, cam, key, target, pix, **kw)
+    lg = jax.jit(lambda s: loss_and_grad(s, cam, key, target, pix, **kw))
+    _, grads = lg(scene)
 
     def loss_at(r):
-        with pltpu.force_tpu_interpret_mode():
-            loss, _ = loss_and_grad_kernel(with_odd(r), cam, key, target,
-                                           pix, **kw)
-        return float(loss)
+        return float(lg(with_odd(r))[0])
 
     eps = 0.02
     fd = (loss_at(ODD[0] + eps) - loss_at(ODD[0] - eps)) / (2 * eps)

@@ -1,4 +1,6 @@
 """End-to-end CLI tests (CPU backend via conftest)."""
+import os
+
 import numpy as np
 
 from rtow_tpu import cli
@@ -16,7 +18,7 @@ def test_render_cover_to_file(tmp_path):
     out = tmp_path / "c.ppm"
     rc = cli.main([
         "-w", "32", "-s", "2", "-c", "3", "-n", "2", "--static-spheres",
-        "--backend", "jnp", "-o", str(out),
+        "-o", str(out),
     ])
     assert rc == 0
     img = read_ppm(open(out))
@@ -27,11 +29,15 @@ def test_render_cover_to_file(tmp_path):
     assert lin[0].mean() > 0.3
 
 
+KNOT_OBJ = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "samples", "knot_small.obj")
+
+
 def test_render_mesh_to_file(tmp_path):
     out = tmp_path / "s.ppm"
     rc = cli.main([
-        "-w", "24", "-s", "2", "-c", "2", "-l", "/root/reference/suzanne.obj",
-        "--backend", "jnp", "-o", str(out),
+        "-w", "24", "-s", "2", "-c", "2", "-l", KNOT_OBJ,
+        "-o", str(out),
     ])
     assert rc == 0
     img = read_ppm(open(out))
@@ -52,7 +58,7 @@ def test_render_demo_scenes(tmp_path):
         out = tmp_path / f"{flag[2:]}.ppm"
         rc = cli.main([
             flag, "-w", "24", "-s", "2", "-c", "3", "-n", "1",
-            "--static-spheres", "--backend", "jnp", "-o", str(out),
+            "--static-spheres", "-o", str(out),
         ])
         assert rc == 0, flag
         lin = decode_ppm(read_ppm(open(out)))
@@ -64,7 +70,7 @@ def test_render_png_output(tmp_path):
     out = tmp_path / "c.png"
     rc = cli.main([
         "-w", "24", "-s", "1", "-c", "2", "-n", "1", "--static-spheres",
-        "--backend", "jnp", "-o", str(out),
+        "-o", str(out),
     ])
     assert rc == 0
     from PIL import Image

@@ -1,6 +1,6 @@
 """Differentiability tests: reverse-mode gradients vs finite differences.
 
-The north-star gradient gate (BASELINE.md): d(pixel loss)/d(sphere
+The north-star gradient gate (BASELINE.json): d(pixel loss)/d(sphere
 centers/radii/albedos) from jax.grad must match central finite
 differences.  Common random numbers (same key, no pixel jitter, no
 defocus, no motion blur) make the loss a smooth function of the scene

@@ -1,6 +1,6 @@
 """Two-process jax.distributed bring-up test.
 
-The multi-host claim must rest on the actual init/DCN code path, not
+The multi-host claim must rest on the actual init code path, not
 just single-process virtual devices: spawn two local CPU processes that
 initialize the distributed runtime through parallel.distributed, build
 the global (tile, spp) mesh, render a sharded image with a cross-host

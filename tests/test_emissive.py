@@ -6,24 +6,32 @@ consumed); ``SceneBuilder.build(background=...)`` selects the miss
 radiance (the reference sky gradient, or a flat color — black for
 light-driven scenes).
 
-Covered paths: the jnp integrator, the persistent megakernel, the
-sorted-wavefront flat bounce kernel, and the gradient kernels
-(d loss / d emitted is exercised against finite differences — emission
-is linear in the emitted color, so FD is exact up to float noise).
+Covered paths: the progressive integrator (brute-force sweep), the flat
+scan integrator behind the BVH, and the gradient path (d loss / d emitted
+is exercised against finite differences — emission is linear in the
+emitted color, so FD is exact up to float noise).
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from rtow_tpu.config import Config
-from rtow_tpu.models.builders import light_scene
 from rtow_tpu.models.camera import make_camera
 from rtow_tpu.models.scene import SceneBuilder
+from rtow_tpu.ops import bvh
 from rtow_tpu.render import render
 
 KEY = jax.random.key(5)
+
+#: The two forward paths: the progressive while-loop integrator with the
+#: fused sweep, and the flat scan integrator with the BVH search.
+PATHS = ["sweep", "bvh"]
+
+
+def _render(scene, cam, cfg, path):
+    nearest = bvh.make_nearest_hit(scene) if path == "bvh" else None
+    return np.asarray(render(scene, cam, cfg, nearest_hit=nearest))
 
 
 def _staring_at_light(emit=(2.0, 3.0, 4.0)):
@@ -51,25 +59,13 @@ def test_builder_flags():
         b.build(background=(1.0, 2.0))
 
 
-def test_direct_hit_is_exact_jnp():
+@pytest.mark.parametrize("path", PATHS)
+def test_direct_hit_is_exact_jnp(path):
     emit = (2.0, 3.0, 4.0)
     scene, cam = _staring_at_light(emit)
     cfg = Config(image_width=8, aspect_ratio=1.0, samples_per_pixel=4,
-                 max_child_rays=3, backend="jnp", seed=1)
-    img = np.asarray(render(scene, cam, cfg))
-    np.testing.assert_allclose(img, np.broadcast_to(emit, img.shape),
-                               rtol=1e-5)
-
-
-def test_direct_hit_is_exact_kernel():
-    from rtow_tpu.ops.pallas_megakernel import render_spheres_pallas
-
-    emit = (2.0, 3.0, 4.0)
-    scene, cam = _staring_at_light(emit)
-    with pltpu.force_tpu_interpret_mode():
-        sums = render_spheres_pallas(scene, cam, 1, width=8, height=8,
-                                     spp=4, max_depth=3)
-    img = np.asarray(sums).reshape(8, 8, 3) / 4
+                 max_child_rays=3, seed=1)
+    img = _render(scene, cam, cfg, path)
     np.testing.assert_allclose(img, np.broadcast_to(emit, img.shape),
                                rtol=1e-5)
 
@@ -84,56 +80,15 @@ def test_black_without_lights():
     b.add_sphere((0.0, 0.0, -2.0), 0.5, b.add_lambertian((0.7, 0.7, 0.7)))
     scene = b.build(background=(0.0, 0.0, 0.0))
     cfg = Config(image_width=8, aspect_ratio=1.0, samples_per_pixel=4,
-                 max_child_rays=4, backend="jnp", seed=2)
+                 max_child_rays=4, seed=2)
     img = np.asarray(render(scene, cam, cfg))
     np.testing.assert_allclose(img, 0.0, atol=1e-7)
 
 
-def test_kernel_matches_jnp_light_scene():
-    """Persistent megakernel vs jnp integrator on the demo light scene —
-    independent RNG streams, so agreement is statistical (means within
-    MC noise)."""
-    from rtow_tpu.ops.pallas_megakernel import render_spheres_pallas
-
-    scene, cam = light_scene(aspect_ratio=1.0)
-    W = H = 16
-    spp, depth = 64, 5
-    cfg = Config(image_width=W, aspect_ratio=1.0, samples_per_pixel=spp,
-                 max_child_rays=depth, backend="jnp", seed=3)
-    img_jnp = np.asarray(render(scene, cam, cfg))
-    with pltpu.force_tpu_interpret_mode():
-        sums = render_spheres_pallas(scene, cam, 3, width=W, height=H,
-                                     spp=spp, max_depth=depth)
-    img_k = np.asarray(sums).reshape(H, W, 3) / spp
-    assert abs(img_jnp.mean() - img_k.mean()) < 0.02
-    assert np.abs(img_jnp - img_k).mean() < 0.08
-
-
-def test_sorted_wavefront_emissive():
-    """The flat bounce kernel (sorted-wavefront path) applies emission:
-    direct light hits through trace_wavefront_sorted are exact."""
-    from rtow_tpu.ops.wavefront_sorted import trace_wavefront_sorted
-
-    emit = (2.0, 3.0, 4.0)
-    scene, cam = _staring_at_light(emit)
-    w = h = 8
-    spp = 4
-    pix = jnp.arange(w * h, dtype=jnp.int32)
-    with pltpu.force_tpu_interpret_mode():
-        sums = trace_wavefront_sorted(
-            scene, cam, KEY, pix, 9, spp=spp, max_depth=3,
-            width=w, height=h,
-        )
-    img = np.asarray(sums) / spp
-    np.testing.assert_allclose(img, np.broadcast_to(emit, img.shape),
-                               rtol=1e-5)
-
-
-def test_emissive_triangle_direct_hit_exact():
+@pytest.mark.parametrize("path", PATHS)
+def test_emissive_triangle_direct_hit_exact(path):
     """Emissive TRIANGLES: a camera staring at an emissive quad gets the
-    emitted color exactly, on both the jnp and kernel paths."""
-    from rtow_tpu.ops.pallas_megakernel import render_spheres_pallas
-
+    emitted color exactly, on both forward paths."""
     emit = (3.0, 2.0, 1.0)
     cam = make_camera(lookfrom=(0.0, 0.0, 1.0), lookat=(0.0, 0.0, 0.0),
                       fov_degrees=60.0, aspect_ratio=1.0, aperture=0.0,
@@ -143,48 +98,31 @@ def test_emissive_triangle_direct_hit_exact():
     # Huge quad at z=-1 facing the camera (+z normal).
     b.add_triangle((-9, -9, -1.0), (9, -9, -1.0), (9, 9, -1.0), lamp)
     b.add_triangle((-9, -9, -1.0), (9, 9, -1.0), (-9, 9, -1.0), lamp)
-    # A dummy sphere behind the quad (scene needs its sphere table).
+    # A sphere behind the quad: triangles and spheres in one scene.
     b.add_sphere((0.0, 0.0, 5.0), 0.5, b.add_lambertian((0.5, 0.5, 0.5)))
     scene = b.build(background=(0.0, 0.0, 0.0))
     cfg = Config(image_width=8, aspect_ratio=1.0, samples_per_pixel=4,
-                 max_child_rays=3, backend="jnp", seed=6)
-    img = np.asarray(render(scene, cam, cfg))
+                 max_child_rays=3, seed=6)
+    img = _render(scene, cam, cfg, path)
     np.testing.assert_allclose(img, np.broadcast_to(emit, img.shape),
                                rtol=1e-5)
-    with pltpu.force_tpu_interpret_mode():
-        sums = render_spheres_pallas(scene, cam, 6, width=8, height=8,
-                                     spp=4, max_depth=3)
-    img_k = np.asarray(sums).reshape(8, 8, 3) / 4
-    np.testing.assert_allclose(img_k, np.broadcast_to(emit, img_k.shape),
-                               rtol=1e-5)
 
 
-def test_cornell_box_kernel_matches_jnp():
-    """Cornell box (emissive triangle ceiling light): kernel vs jnp
-    statistical agreement — both paths run NEE here, so this also
-    gates the in-kernel shadow sweep + SMEM light table against the
-    jnp sampler — plus basic physical sanity (red/green wall bleed on
-    opposite halves)."""
+def test_cornell_box_wall_bleed():
+    """Cornell box (emissive triangle ceiling light, NEE on): physical
+    sanity — red/green wall bleed on opposite halves."""
     from rtow_tpu.models.builders import cornell_scene
-    from rtow_tpu.ops.pallas_megakernel import render_spheres_pallas
 
     scene, cam = cornell_scene(1.0)
-    W = H = 16
-    spp, depth = 64, 4
-    cfg = Config(image_width=W, aspect_ratio=1.0, samples_per_pixel=spp,
-                 max_child_rays=depth, backend="jnp", seed=8)
-    img_jnp = np.asarray(render(scene, cam, cfg))
-    with pltpu.force_tpu_interpret_mode():
-        sums = render_spheres_pallas(scene, cam, 8, width=W, height=H,
-                                     spp=spp, max_depth=depth)
-    img_k = np.asarray(sums).reshape(H, W, 3) / spp
-    assert abs(img_jnp.mean() - img_k.mean()) < 0.03
-    for img in (img_jnp, img_k):
-        left = img[:, : W // 3]
-        right = img[:, -W // 3:]
-        # Red wall on the image-left third, green on the right third.
-        assert left[..., 0].mean() > left[..., 1].mean()
-        assert right[..., 1].mean() > right[..., 0].mean()
+    W = 16
+    cfg = Config(image_width=W, aspect_ratio=1.0, samples_per_pixel=64,
+                 max_child_rays=4, seed=8)
+    img = np.asarray(render(scene, cam, cfg))
+    left = img[:, : W // 3]
+    right = img[:, -W // 3:]
+    # Red wall on the image-left third, green on the right third.
+    assert left[..., 0].mean() > left[..., 1].mean()
+    assert right[..., 1].mean() > right[..., 0].mean()
 
 
 def test_nee_matches_plain_estimator():
@@ -258,19 +196,19 @@ def test_nee_variance_reduction_cornell():
 
 
 def test_emission_gradient_fd():
-    """d(MSE)/d(emitted color) through the GRADIENT kernels vs central
-    finite differences.  The camera stares at the light, so the loss is
-    exactly quadratic in emit and FD at any step is exact."""
+    """d(MSE)/d(emitted color) vs central finite differences.  The camera
+    stares at the light, so the loss is exactly quadratic in emit and FD
+    at any step is exact."""
     import dataclasses
 
-    from rtow_tpu.ops.pallas_grad import loss_and_grad_kernel
+    from rtow_tpu.diff import loss_and_grad
 
     emit = (2.0, 3.0, 4.0)
     scene, cam = _staring_at_light(emit)
     w = h = 4
     pix = jnp.arange(w * h, dtype=jnp.int32)
     target = jnp.full((w * h, 3), 1.0)
-    kw = dict(width=w, height=h, spp=2, max_depth=2, seed=13, jitter=False)
+    kw = dict(width=w, height=h, spp=2, max_depth=2, jitter=False)
 
     def with_emit(r):
         mats = dataclasses.replace(
@@ -279,14 +217,11 @@ def test_emission_gradient_fd():
         )
         return dataclasses.replace(scene, materials=mats)
 
-    with pltpu.force_tpu_interpret_mode():
-        _, grads = loss_and_grad_kernel(scene, cam, KEY, target, pix, **kw)
+    lg = jax.jit(lambda s: loss_and_grad(s, cam, KEY, target, pix, **kw))
+    _, grads = lg(scene)
 
     def loss_at(r):
-        with pltpu.force_tpu_interpret_mode():
-            loss, _ = loss_and_grad_kernel(with_emit(r), cam, KEY, target,
-                                           pix, **kw)
-        return float(loss)
+        return float(lg(with_emit(r))[0])
 
     eps = 0.05
     fd = (loss_at(emit[0] + eps) - loss_at(emit[0] - eps)) / (2 * eps)
@@ -347,14 +282,13 @@ def test_mis_pdf_pairing():
     np.testing.assert_allclose(pdf_back[ok], pdf[ok], rtol=2e-3)
 
 
-def test_mis_exact_inside_dome_light():
+@pytest.mark.parametrize("path", PATHS)
+def test_mis_exact_inside_dome_light(path):
     """One diffuse bounce inside an enclosing emissive dome: NEE's cone
     sample is degenerate (shading point inside the light -> pdf 0) and
     the BRDF-side balance weight must then be exactly 1, so the pixel
     is exactly albedo * emit.  Any double counting or lost weight shows
-    up immediately.  Covers the jnp integrator and the megakernel."""
-    from rtow_tpu.ops.pallas_megakernel import render_spheres_pallas
-
+    up immediately.  Covers both forward paths."""
     emit = (2.0, 1.0, 0.5)
     albedo = (0.5, 0.6, 0.7)
     cam = make_camera(lookfrom=(0.0, 1.5, 2.0), lookat=(0.0, 0.0, 0.0),
@@ -368,13 +302,7 @@ def test_mis_exact_inside_dome_light():
     scene = b.build(background=(0.0, 0.0, 0.0))
     want = np.array(albedo) * np.array(emit)
     cfg = Config(image_width=8, aspect_ratio=1.0, samples_per_pixel=8,
-                 max_child_rays=4, backend="jnp", seed=12)
-    img = np.asarray(render(scene, cam, cfg))
+                 max_child_rays=4, seed=12)
+    img = _render(scene, cam, cfg, path)
     np.testing.assert_allclose(img, np.broadcast_to(want, img.shape),
-                               rtol=1e-4)
-    with pltpu.force_tpu_interpret_mode():
-        sums = render_spheres_pallas(scene, cam, 12, width=8, height=8,
-                                     spp=8, max_depth=4)
-    img_k = np.asarray(sums).reshape(8, 8, 3) / 8
-    np.testing.assert_allclose(img_k, np.broadcast_to(want, img_k.shape),
                                rtol=1e-4)

@@ -1,7 +1,7 @@
-"""f64 validation oracle (VERDICT r2 #6).
+"""f64 validation oracle.
 
 The reference computes end-to-end in double precision (reference
-src/vec3.h:6-8: ``rt::vec3 = glm::dvec3``); the TPU build traces in
+src/vec3.h:6-8: ``rt::vec3 = glm::dvec3``); this build traces in
 float32 (utils/dtypes.py policy).  This module makes the dtypes.py
 promise ("tests may flip to float64 ... to validate the math against
 high-precision oracles") true: under ``jax_enable_x64`` it renders the
@@ -10,7 +10,7 @@ and rng.unit_vectors always draw at f32 resolution and upcast, so the
 sample stream is bit-identical across precisions) and bounds the
 per-pixel rounding error.
 
-Measured error structure (CPU, 2026-08-19, recorded in BASELINE.md):
+Measured error structure (CPU):
 continuous-path pixels agree to ~1e-6 (p90 <= 1.1e-5 on both configs);
 a small tail (0.9% three-sphere, 5% cover slice) flips a *discrete*
 branch (hit/miss at a silhouette, Schlick reflect-vs-refract on a

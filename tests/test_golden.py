@@ -4,8 +4,8 @@ tools/golden_compare.py renders the SAME generated cover scene through
 tools/cpu_floor.cpp (independent C++ implementation of the reference
 algorithm, reference src/render.cpp:112-190) and through this
 framework, and compares converged block means.  The full north-star
-config runs per round via `make verify`; this small-config run keeps
-parity enforced by every test run so it cannot rot silently.
+config runs via `make verify`; this small-config run keeps parity
+enforced by every test run so it cannot rot silently.
 """
 import os
 import shutil
@@ -17,7 +17,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 
-@pytest.mark.slow
 def test_golden_parity_small():
     if shutil.which("g++") is None:  # pragma: no cover
         pytest.skip("no C++ toolchain for the golden oracle")
@@ -28,16 +27,12 @@ def test_golden_parity_small():
     assert golden_compare.main(["240", "32", "10"]) == 0
 
 
-@pytest.mark.slow
 def test_mesh_golden_parity_small():
-    """Sorted-wavefront mesh path vs the C++ floor's BVH render of the
-    SAME knot OBJ (interpret-mode Pallas on CPU; small knot)."""
+    """BVH mesh path (through render_auto) vs the C++ floor's BVH render
+    of the SAME knot OBJ (small knot)."""
     if shutil.which("g++") is None:  # pragma: no cover
         pytest.skip("no C++ toolchain for the golden oracle")
-    from jax.experimental.pallas import tpu as pltpu
-
     import golden_compare
 
-    with pltpu.force_tpu_interpret_mode():
-        # 64px @ 16spp on a 768-tri knot: ~65k rays each side.
-        assert golden_compare.main(["--mesh", "64", "16", "5", "32", "12"]) == 0
+    # 64px @ 16spp on a 768-tri knot: ~65k rays each side.
+    assert golden_compare.main(["--mesh", "64", "16", "5", "32", "12"]) == 0

@@ -43,7 +43,7 @@ def test_constant_texture_equals_lambertian():
     scene_lam = b.build()
 
     cfg = Config(image_width=16, aspect_ratio=1.0, samples_per_pixel=8,
-                 max_child_rays=4, backend="jnp", seed=9)
+                 max_child_rays=4, seed=9)
     img_t = np.asarray(render(scene_img, cam, cfg))
     img_l = np.asarray(render(scene_lam, cam, cfg))
     np.testing.assert_allclose(img_t, img_l, atol=1e-6)
@@ -59,7 +59,7 @@ def test_uv_orientation():
     tex[4:] = (0.0, 0.0, 1.0)   # south half: blue
     scene, cam = _globe(tex)
     cfg = Config(image_width=24, aspect_ratio=1.0, samples_per_pixel=32,
-                 max_child_rays=2, backend="jnp", seed=1)
+                 max_child_rays=2, seed=1)
     img = np.asarray(render(scene, cam, cfg))
     # Rows 8-10 are the upper part of the sphere (sphere spans ~5-19).
     top = img[8:10, 10:14]
@@ -68,20 +68,19 @@ def test_uv_orientation():
     assert bot[..., 2].mean() > 2.0 * bot[..., 0].mean()
 
 
-def test_image_scene_fenced_off_kernels():
-    """Dispatch: image scenes never reach the Pallas kernels, even with
-    --backend pallas (texel gathers would serialize the VPU)."""
-    from rtow_tpu.ops.pallas_grad import render_pixels_kernel
-    from rtow_tpu.pipeline import pallas_supported, wavefront_supported
+def test_image_scene_through_render_auto():
+    """Image scenes take the normal dispatch like any other scene."""
+    from rtow_tpu.pipeline import render_auto
 
-    scene, _ = _globe(np.full((4, 8, 3), 0.5))
-    cfg = Config(backend="pallas")
-    assert not pallas_supported(scene, cfg)
-    assert not wavefront_supported(scene, cfg)
-    with pytest.raises(NotImplementedError):
-        render_pixels_kernel(scene, None, KEY,
-                             jnp.arange(4), width=2, height=2, spp=1,
-                             max_depth=1)
+    tex = np.zeros((4, 8, 3))
+    tex[:2, :, 0] = 1.0  # red north
+    tex[2:, :, 2] = 1.0  # blue south
+    scene, cam = _globe(tex)
+    cfg = Config(image_width=24, aspect_ratio=1.0, samples_per_pixel=32,
+                 max_child_rays=2, seed=1)
+    img = render_auto(scene, cam, cfg)
+    assert np.isfinite(img).all()
+    np.testing.assert_array_equal(img, render(scene, cam, cfg))
 
 
 def test_gradients_flow_into_texels():

@@ -56,3 +56,19 @@ def test_three_sphere_scene_renders():
     img = render(scene, cam, _cfg(samples_per_pixel=8, max_child_rays=12))
     assert np.all(np.isfinite(img))
     assert img.mean() > 0.05
+
+
+def test_progress_ticks_once_per_chunk(capsys):
+    """The scanline ticker prints from the host as each chunk finishes,
+    ending at 0, and the image equals the one rendered without it."""
+    scene, cam = one_sphere_scene()
+    cfg = _cfg(rays_per_batch=500)  # 64x36 px -> 5 chunks
+    quiet = render(scene, cam, cfg)
+    capsys.readouterr()
+    loud = render(scene, cam, cfg, progress=True)
+    err = capsys.readouterr().err
+    ticks = [t for t in err.split("\r") if t.startswith("Scanlines remaining")]
+    assert len(ticks) == 5
+    assert ticks[-1].split(":")[1].split()[0] == "0"
+    assert "Done in" in err
+    np.testing.assert_array_equal(loud, quiet)

@@ -3,19 +3,18 @@
 The reference terminates paths by depth budget alone
 (src/render.cpp:114-115); RR is an opt-in throughput lever here, so it
 must be (a) OFF by default, (b) unbiased — E[boosted estimator] equals
-the plain estimator — and (c) wired through every production path
-(jnp scan, persistent wavefront, Pallas megakernel, sorted wavefront).
+the plain estimator — and (c) wired through both forward paths (the
+progressive while-loop integrator and the flat scan integrator).
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental.pallas import tpu as pltpu
+import pytest
 
 from rtow_tpu.config import Config
 from rtow_tpu.models.builders import one_sphere_scene, three_sphere_scene
-from rtow_tpu.ops import integrator
+from rtow_tpu.ops import integrator, intersect
 from rtow_tpu.ops.integrator import RR_PMIN, RR_START, _roulette
-from rtow_tpu.ops.pallas_megakernel import render_spheres_pallas
 from rtow_tpu.render import render
 
 
@@ -99,33 +98,18 @@ def test_render_rr_image_statistically_equal():
         max(4 * noise, 0.02)
 
 
-def test_kernel_rr_matches_plain_kernel():
-    """Pallas megakernel (interpret mode): RR on == RR off statistically."""
-    scene, cam = three_sphere_scene(aspect_ratio=1.0)
-    W = H = 24
-    spp, depth = 48, 12
-    with pltpu.force_tpu_interpret_mode():
-        a = render_spheres_pallas(scene, cam, 0, width=W, height=H,
-                                  spp=spp, max_depth=depth)
-        b = render_spheres_pallas(scene, cam, 0, width=W, height=H,
-                                  spp=spp, max_depth=depth, roulette=True)
-        c = render_spheres_pallas(scene, cam, 7, width=W, height=H,
-                                  spp=spp, max_depth=depth)
-    a, b, c = (np.asarray(x).reshape(-1, 3) / spp for x in (a, b, c))
-    noise = np.abs(c - a).mean()
-    assert np.abs(b - a).mean() < max(4 * noise, 0.04)
-    assert abs(b.mean() - a.mean()) < max(4 * noise, 0.02)
-
-
-def test_kernel_rr_short_depth_identical():
-    """depth <= RR_START+1 means RR can never fire: images identical."""
+@pytest.mark.parametrize("flat", [False, True])
+def test_rr_short_depth_identical(flat):
+    """depth <= RR_START means RR can never fire: images identical, on
+    the progressive path and on the flat scan path."""
     scene, cam = one_sphere_scene(aspect_ratio=1.0)
-    with pltpu.force_tpu_interpret_mode():
-        a = render_spheres_pallas(scene, cam, 3, width=16, height=16,
-                                  spp=8, max_depth=3)
-        b = render_spheres_pallas(scene, cam, 3, width=16, height=16,
-                                  spp=8, max_depth=3, roulette=True)
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    nearest = intersect.nearest_hit_bruteforce if flat else None
+    base = dict(image_width=16, aspect_ratio=1.0, samples_per_pixel=8,
+                max_child_rays=RR_START, seed=3)
+    a = render(scene, cam, Config(**base), nearest_hit=nearest)
+    b = render(scene, cam, Config(**base, russian_roulette=True),
+               nearest_hit=nearest)
+    np.testing.assert_array_equal(a, b)
 
 
 def test_cli_flag_roundtrip():

@@ -1,17 +1,16 @@
 """Constant-density media (book 2 ch. 9 smoke/fog) — beyond the
-reference's surface-only scope.  Covered paths: jnp integrator (scan
-and persistent-progressive) and the megakernels (shared _bounce_core).
+reference's surface-only scope.  Covered paths: the integrator's flat
+scan and its persistent-progressive loop.
 
 Oracles: analytic transmittance through an absorbing slab (the
 free-flight sampler IS the transmittance estimator, so the mean must be
-exp(-sigma * L) exactly), kernel-vs-jnp statistical parity, and
+exp(-sigma * L) exactly), flat-vs-progressive statistical parity, and
 NEE-with-volumes unbiasedness against the plain estimator.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from rtow_tpu.config import Config
 from rtow_tpu.models.camera import make_camera
@@ -54,7 +53,7 @@ def test_absorbing_slab_transmittance_jnp():
     sigma, L = 0.7, 2.0
     scene, cam = _slab_scene(sigma, L)
     cfg = Config(image_width=8, aspect_ratio=1.0, samples_per_pixel=4096,
-                 max_child_rays=4, backend="jnp", seed=3)
+                 max_child_rays=4, seed=3)
     img = np.asarray(render(scene, cam, cfg))
     want = np.exp(-sigma * L) * 2.0
     # Central pixels: near-axial rays (path ~ L); 4096 spp -> SE ~ 0.016.
@@ -63,19 +62,17 @@ def test_absorbing_slab_transmittance_jnp():
     assert img.mean() < want + 0.05
 
 
-def test_absorbing_slab_transmittance_kernel():
-    """Same analytic gate through the persistent megakernel (interpret
-    mode; independent in-kernel hash RNG)."""
-    from rtow_tpu.ops.pallas_megakernel import render_spheres_pallas
+def test_absorbing_slab_transmittance_flat():
+    """Same analytic gate through the flat scan integrator (the path
+    meshes take behind the BVH)."""
+    from rtow_tpu.ops import bvh
 
     sigma, L = 0.7, 2.0
     scene, cam = _slab_scene(sigma, L)
-    W = H = 8
-    spp = 1024
-    with pltpu.force_tpu_interpret_mode():
-        sums = render_spheres_pallas(scene, cam, 5, width=W, height=H,
-                                     spp=spp, max_depth=4)
-    img = np.asarray(sums).reshape(H, W, 3) / spp
+    cfg = Config(image_width=8, aspect_ratio=1.0, samples_per_pixel=1024,
+                 max_child_rays=4, seed=5)
+    img = np.asarray(render(scene, cam, cfg,
+                            nearest_hit=bvh.make_nearest_hit(scene)))
     want = np.exp(-sigma * L) * 2.0
     assert abs(img[3:5, 3:5, 0].mean() - want) < 0.08
 
@@ -92,47 +89,23 @@ def _fog_ball_scene():
     return b.build(), cam
 
 
-def test_fog_kernel_matches_jnp():
-    """Scattering fog ball: persistent megakernel vs jnp integrator
-    statistical agreement, and the fog visibly occludes the ground."""
-    from rtow_tpu.ops.pallas_megakernel import render_spheres_pallas
+def test_fog_flat_matches_progressive():
+    """Scattering fog ball: flat scan vs progressive loop statistical
+    agreement, and the fog visibly occludes the ground."""
+    from rtow_tpu.ops import intersect
 
     scene, cam = _fog_ball_scene()
-    W = H = 16
-    spp, depth = 64, 6
-    cfg = Config(image_width=W, aspect_ratio=1.0, samples_per_pixel=spp,
-                 max_child_rays=depth, backend="jnp", seed=4)
-    img_jnp = np.asarray(render(scene, cam, cfg))
-    with pltpu.force_tpu_interpret_mode():
-        sums = render_spheres_pallas(scene, cam, 4, width=W, height=H,
-                                     spp=spp, max_depth=depth)
-    img_k = np.asarray(sums).reshape(H, W, 3) / spp
-    assert abs(img_jnp.mean() - img_k.mean()) < 0.03
-    assert np.abs(img_jnp - img_k).mean() < 0.08
+    cfg = Config(image_width=16, aspect_ratio=1.0, samples_per_pixel=64,
+                 max_child_rays=6, seed=4)
+    img_p = np.asarray(render(scene, cam, cfg))
+    img_f = np.asarray(render(scene, cam, cfg,
+                              nearest_hit=intersect.nearest_hit_bruteforce))
+    assert abs(img_p.mean() - img_f.mean()) < 0.03
+    assert np.abs(img_p - img_f).mean() < 0.08
     # The fog ball sits center-frame: those pixels are whitish (fog
     # scatters sky), not the ground's red.
-    center = img_jnp[6:10, 6:10]
+    center = img_p[6:10, 6:10]
     assert center[..., 2].mean() > 0.3  # blue channel present (not red)
-
-
-def test_sorted_wavefront_volumes():
-    """The flat bounce kernel (sorted-wavefront path) applies media:
-    absorbing slab through trace_wavefront_sorted matches analytic."""
-    from rtow_tpu.ops.wavefront_sorted import trace_wavefront_sorted
-
-    sigma, L = 0.7, 2.0
-    scene, cam = _slab_scene(sigma, L)
-    w = h = 8
-    spp = 512
-    pix = jnp.arange(w * h, dtype=jnp.int32)
-    with pltpu.force_tpu_interpret_mode():
-        sums = trace_wavefront_sorted(
-            scene, cam, jax.random.key(2), pix, 7, spp=spp, max_depth=4,
-            width=w, height=h,
-        )
-    img = np.asarray(sums).reshape(h, w, 3) / spp
-    want = np.exp(-sigma * L) * 2.0
-    assert abs(img[3:5, 3:5, 0].mean() - want) < 0.1
 
 
 def test_volume_nee_unbiased():

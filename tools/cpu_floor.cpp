@@ -2,8 +2,8 @@
 //
 // The reference (joaotavora/raytracing-one-weekend) publishes no benchmark
 // numbers and its conan dependencies (glm/cli11/fmt) are not installable in
-// this environment, so BASELINE.md's "measure the reference build on this
-// machine" step is satisfied by this stand-alone re-implementation of the
+// this environment, so the "measure the reference build on this machine"
+// step is satisfied by this stand-alone re-implementation of the
 // same algorithm: double-precision recursive path tracing, median-split BVH,
 // lambertian/metal/dielectric materials, thin-lens camera with motion-blur
 // shutter, std::async sample-sharding across all hardware threads — the
@@ -15,7 +15,7 @@
 // scene.txt (optional): one sphere per line,
 //   "cx cy cz dcx dcy dcz r kind aR aG aB fuzz ir"  (kind 0/1/2)
 // written by tools/dump_scene.py — renders OUR generated scene so images
-// can be compared pixel-region-wise against the TPU renderer.
+// can be compared pixel-region-wise against the JAX renderer.
 // out.ppm (optional): write the tone-mapped P3 image (reference
 // write_color semantics: mean, sqrt, clamp .999, x256).
 
@@ -81,7 +81,7 @@ struct Sphere {
 
 // Triangle in v0/e1/e2 form, Moller-Trumbore determinant intersection
 // with the reference's backface cull (src/common-model.cpp:104-125) —
-// the same semantics the TPU kernels implement, so mesh floors are
+// the same semantics the JAX renderer implements, so mesh floors are
 // measured on the identical algorithm.
 struct Tri {
   V3 a, e1, e2;

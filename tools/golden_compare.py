@@ -1,24 +1,21 @@
 #!/usr/bin/env python
-"""Golden-image parity: TPU renderer vs the C++ reference algorithm.
+"""Golden-image parity: this renderer vs the C++ reference algorithm.
 
-The upstream golden (samples/cover.ppm) is stripped from the mount
-(.MISSING_LARGE_BLOBS), so the golden is regenerated by tools/cpu_floor
-(the independent C++ implementation of the reference algorithm) on the
-SAME scene our generator builds: the scene is dumped to a text file, the
-C++ binary loads it, and both render the same camera/geometry.  RNG
-streams differ, so parity is judged on downsampled block means of the
-linearised images — the converged-mean comparison SURVEY.md §7 calls
-for.
+The upstream golden (samples/cover.ppm) is not vendored, so the golden
+is regenerated by tools/cpu_floor (the independent C++ implementation of
+the reference algorithm) on the SAME scene our generator builds: the
+scene is dumped to a text file, the C++ binary loads it, and both render
+the same camera/geometry.  RNG streams differ, so parity is judged on
+downsampled block means of the linearised images — the converged-mean
+comparison SURVEY.md §7 calls for.
 
-Usage: python tools/golden_compare.py [width] [spp] [depth]
-Defaults to the NORTH-STAR config (1200x675, 256 spp, depth 50 — spp
-halved vs the 500-spp render target purely for CPU-render time; block
-means converge the same).  Writes /tmp/golden_cpp.ppm +
-/tmp/golden_tpu.ppm, prints per-block statistics, records them in
-PARITY.json at the repo root when run at the default config, and exits
-nonzero if the images disagree beyond MC noise.  A small-config run is
-part of the pytest suite (tests/test_golden.py) so parity regressions
-fail loudly instead of rotting between rounds.
+Usage: python tools/golden_compare.py [--mesh] [width spp depth [segments rings]]
+                                      [--record PATH]
+Cover defaults: 1200x675, 256 spp, depth 50.  Mesh (``--mesh``) defaults:
+the 65,536-triangle knot at 400x400, 64 spp, depth 20.  Prints per-block
+statistics and exits nonzero if the images disagree beyond MC noise;
+``--record PATH`` merges the statistics into the JSON file at PATH.
+A small-config run is part of the pytest suite (tests/test_golden.py).
 """
 from __future__ import annotations
 
@@ -26,12 +23,14 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 sys.path.insert(0, ROOT)
+sys.path.insert(0, HERE)
 
 
 def dump_scene(scene, path: str) -> None:
@@ -64,151 +63,126 @@ def block_means(img: np.ndarray, bs: int = 24) -> np.ndarray:
 def _ensure_cpu_floor() -> str:
     cpu_bin = os.path.join(HERE, "cpu_floor")
     if not os.path.exists(cpu_bin):
+        tmp = f"{cpu_bin}.tmp{os.getpid()}"
         subprocess.run(["g++", "-O3", "-march=native", "-std=c++17",
-                        os.path.join(HERE, "cpu_floor.cpp"), "-o", cpu_bin],
+                        os.path.join(HERE, "cpu_floor.cpp"), "-o", tmp],
                        check=True)
+        os.replace(tmp, cpu_bin)  # atomic under concurrent builds
     return cpu_bin
 
 
-def _record(key: str, entry: dict) -> None:
-    """Merge one parity record into PARITY.json (keyed by scene kind)."""
-    path = os.path.join(ROOT, "PARITY.json")
+def _cpp_render(width, spp, depth, scene_path, workdir) -> np.ndarray:
+    out = os.path.join(workdir, "golden_cpp.ppm")
+    subprocess.run(
+        [_ensure_cpu_floor(), str(width), str(spp), str(depth),
+         str(os.cpu_count()), scene_path, out],
+        check=True, timeout=3600,
+    )
+    from rtow_tpu.utils.ppm import decode_ppm, read_ppm
+
+    with open(out) as f:
+        return decode_ppm(read_ppm(f))
+
+
+def block_parity(golden, img, spp, bs, config) -> dict:
+    """Block-mean agreement of two images within MC noise -> stats."""
+    diff = np.abs(block_means(golden, bs) - block_means(img, bs))
+    noise = 1.0 / np.sqrt(spp * bs * bs)  # block-mean MC sigma scale
+    ok = bool(diff.mean() < 6 * noise and diff.max() < 0.06)
+    return {"config": config,
+            "block_mean_abs_diff": float(diff.mean()),
+            "block_max_abs_diff": float(diff.max()),
+            "block_mc_sigma": float(noise), "ok": ok}
+
+
+def cover_parity(width=1200, spp=256, depth=50) -> dict:
+    """Cover scene through ``render_auto`` vs the C++ render -> stats."""
+    from rtow_tpu.config import Config
+    from rtow_tpu.models.builders import cover_scene
+    from rtow_tpu.pipeline import render_auto
+
+    cfg = Config(image_width=width, aspect_ratio=16.0 / 9.0,
+                 samples_per_pixel=spp, max_child_rays=depth)
+    scene, cam = cover_scene(cfg)
+    with tempfile.TemporaryDirectory() as workdir:
+        scene_txt = os.path.join(workdir, "golden_scene.txt")
+        dump_scene(scene, scene_txt)
+        print(f"C++ golden render {width}px spp={spp}...", file=sys.stderr)
+        golden = _cpp_render(width, spp, depth, scene_txt, workdir)
+    img = render_auto(scene, cam, cfg)
+    return block_parity(golden, img, spp, 24,
+                    {"width": width, "spp": spp, "depth": depth})
+
+
+def knot_scene(segments: int, rings: int):
+    """The trefoil-knot mesh scene and camera of the mesh benchmark."""
+    from make_mesh import make_knot
+
+    from rtow_tpu.models.camera import make_camera
+    from rtow_tpu.models.scene import SceneBuilder
+
+    verts, faces = make_knot(segments, rings)
+    b = SceneBuilder()
+    b.add_mesh(verts[faces], b.add_lambertian((0.6, 0.5, 0.4)))
+    cam = make_camera(lookfrom=(0.0, 0.0, 3.0), lookat=(0.0, 0.0, 0.0),
+                      fov_degrees=45.0, aspect_ratio=1.0, aperture=0.0,
+                      focus_dist=3.0)
+    return b.build(), cam, verts, faces
+
+
+def mesh_parity(width=400, spp=64, depth=20, segments=256, rings=128) -> dict:
+    """Knot through ``render_auto`` (BVH path) vs the C++ BVH render of
+    the SAME OBJ (same camera, material and tone map) -> stats."""
+    from rtow_tpu.config import Config
+    from rtow_tpu.pipeline import render_auto
+
+    scene, cam, verts, faces = knot_scene(segments, rings)
+    with tempfile.TemporaryDirectory() as workdir:
+        obj_path = os.path.join(workdir, "golden_knot.obj")
+        with open(obj_path, "w") as f:
+            for v in verts:
+                f.write(f"v {v[0]:.9g} {v[1]:.9g} {v[2]:.9g}\n")
+            for a, b, c in faces + 1:
+                f.write(f"f {a} {b} {c}\n")
+        print(f"C++ mesh golden render {width}px spp={spp} "
+              f"({faces.shape[0]} tris)...", file=sys.stderr)
+        golden = _cpp_render(width, spp, depth, obj_path, workdir)
+    cfg = Config(image_width=width, aspect_ratio=1.0, samples_per_pixel=spp,
+                 max_child_rays=depth)
+    img = render_auto(scene, cam, cfg)
+    return block_parity(golden, img, spp, max(8, width // 16),
+                    {"width": width, "spp": spp, "depth": depth,
+                     "tris": int(faces.shape[0])})
+
+
+def _record(path: str, key: str, entry: dict) -> None:
+    """Merge one parity record into the JSON file at ``path``."""
     data = {}
     if os.path.exists(path):
         with open(path) as f:
             data = json.load(f)
-        if "config" in data and key not in data:
-            data = {"cover": data}  # migrate the flat round-2 layout
     data[key] = entry
     with open(path, "w") as f:
         json.dump(data, f, indent=1)
 
 
-def main_mesh(argv) -> int:
-    """Mesh parity: sorted-wavefront TPU path vs the C++ floor's
-    BVH-traced render of the SAME trefoil-knot OBJ (same camera,
-    material, and tone map — the mesh-bench config)."""
-    width = int(argv[0]) if len(argv) > 0 else 400
-    spp = int(argv[1]) if len(argv) > 1 else 64
-    depth = int(argv[2]) if len(argv) > 2 else 20
-    segments = int(argv[3]) if len(argv) > 3 else 256
-    rings = int(argv[4]) if len(argv) > 4 else 128
-    is_default = (width, spp, depth, segments, rings) == (400, 64, 20,
-                                                          256, 128)
-
-    from make_mesh import make_knot
-
-    from rtow_tpu.config import Config
-    from rtow_tpu.models.camera import make_camera
-    from rtow_tpu.models.scene import SceneBuilder
-    from rtow_tpu.ops.wavefront_sorted import render_wavefront
-    from rtow_tpu.utils.ppm import decode_ppm, read_ppm, write_ppm
-
-    verts, faces = make_knot(segments, rings)
-    obj_path = "/tmp/golden_knot.obj"
-    with open(obj_path, "w") as f:
-        for v in verts:
-            f.write(f"v {v[0]:.9g} {v[1]:.9g} {v[2]:.9g}\n")
-        for a, b, c in faces + 1:
-            f.write(f"f {a} {b} {c}\n")
-
-    cpu_bin = _ensure_cpu_floor()
-    print(f"C++ mesh golden render {width}px spp={spp} "
-          f"({faces.shape[0]} tris)...", file=sys.stderr)
-    subprocess.run(
-        [cpu_bin, str(width), str(spp), str(depth), str(os.cpu_count()),
-         obj_path, "/tmp/golden_mesh_cpp.ppm"],
-        check=True, timeout=3600,
-    )
-    golden = decode_ppm(read_ppm(open("/tmp/golden_mesh_cpp.ppm")))
-
-    print("TPU render...", file=sys.stderr)
-    b = SceneBuilder()
-    b.add_mesh(verts[faces], b.add_lambertian((0.6, 0.5, 0.4)))
-    scene = b.build()
-    cam = make_camera(lookfrom=(0.0, 0.0, 3.0), lookat=(0.0, 0.0, 0.0),
-                      fov_degrees=45.0, aspect_ratio=1.0, aperture=0.0,
-                      focus_dist=3.0)
-    cfg = Config(image_width=width, aspect_ratio=1.0, samples_per_pixel=spp,
-                 max_child_rays=depth)
-    img = render_wavefront(scene, cam, cfg)
-    with open("/tmp/golden_mesh_tpu.ppm", "w") as f:
-        write_ppm(f, img)
-
-    bs = max(8, width // 16)
-    bg = block_means(golden, bs)
-    bt = block_means(img, bs)
-    diff = np.abs(bg - bt)
-    noise = 1.0 / np.sqrt(spp * bs * bs)
-    print(f"mesh block-mean abs diff: mean {diff.mean():.4f} "
-          f"max {diff.max():.4f} (block MC sigma ~{noise:.4f})")
-    ok = bool(diff.mean() < 6 * noise and diff.max() < 0.06)
-    print("PARITY OK" if ok else "PARITY FAIL")
-    if is_default:
-        _record("mesh65k", {
-            "config": {"width": width, "spp": spp, "depth": depth,
-                       "tris": int(faces.shape[0])},
-            "block_mean_abs_diff": round(float(diff.mean()), 5),
-            "block_max_abs_diff": round(float(diff.max()), 5),
-            "block_mc_sigma": round(float(noise), 5),
-            "ok": ok,
-        })
-    return 0 if ok else 1
-
-
 def main(argv=None) -> int:
     argv = list(sys.argv[1:]) if argv is None else list(argv)
-    if argv and argv[0] == "--mesh":
-        return main_mesh(argv[1:])
-    width = int(argv[0]) if len(argv) > 0 else 1200
-    spp = int(argv[1]) if len(argv) > 1 else 256
-    depth = int(argv[2]) if len(argv) > 2 else 50
-    is_northstar = (width, spp, depth) == (1200, 256, 50)
-
-    from rtow_tpu.config import Config
-    from rtow_tpu.models.builders import cover_scene
-    from rtow_tpu.pipeline import render_auto
-    from rtow_tpu.utils.ppm import decode_ppm, read_ppm
-
-    cfg = Config(image_width=width, aspect_ratio=16.0 / 9.0,
-                 samples_per_pixel=spp, max_child_rays=depth)
-    scene, cam = cover_scene(cfg)
-    scene_txt = "/tmp/golden_scene.txt"
-    dump_scene(scene, scene_txt)
-
-    cpu_bin = _ensure_cpu_floor()
-    print(f"C++ golden render {width}px spp={spp}...", file=sys.stderr)
-    subprocess.run(
-        [cpu_bin, str(width), str(spp), str(depth), str(os.cpu_count()),
-         scene_txt, "/tmp/golden_cpp.ppm"],
-        check=True, timeout=3600,
-    )
-    golden = decode_ppm(read_ppm(open("/tmp/golden_cpp.ppm")))
-
-    print("TPU render...", file=sys.stderr)
-    img = render_auto(scene, cam, cfg, progress=True)
-    from rtow_tpu.utils.ppm import write_ppm
-
-    with open("/tmp/golden_tpu.ppm", "w") as f:
-        write_ppm(f, img)
-
-    bg = block_means(golden)
-    bt = block_means(img)
-    diff = np.abs(bg - bt)
-    noise = 1.0 / np.sqrt(spp * 24 * 24)  # block-mean MC sigma scale
-    print(f"block-mean abs diff: mean {diff.mean():.4f} max {diff.max():.4f} "
-          f"(block MC sigma ~{noise:.4f})")
-    ok = bool(diff.mean() < 6 * noise and diff.max() < 0.06)
-    print("PARITY OK" if ok else "PARITY FAIL")
-    if is_northstar:
-        _record("cover", {
-            "config": {"width": width, "spp": spp, "depth": depth},
-            "block_mean_abs_diff": round(float(diff.mean()), 5),
-            "block_max_abs_diff": round(float(diff.max()), 5),
-            "block_mc_sigma": round(float(noise), 5),
-            "ok": ok,
-        })
-    return 0 if ok else 1
+    record = None
+    if "--record" in argv:
+        i = argv.index("--record")
+        record = argv[i + 1]
+        del argv[i:i + 2]
+    mesh = argv[:1] == ["--mesh"]
+    nums = [int(a) for a in argv[int(mesh):]]
+    stats = (mesh_parity if mesh else cover_parity)(*nums)
+    print(f"block-mean abs diff: mean {stats['block_mean_abs_diff']:.4f} "
+          f"max {stats['block_max_abs_diff']:.4f} "
+          f"(block MC sigma ~{stats['block_mc_sigma']:.4f})")
+    print("PARITY OK" if stats["ok"] else "PARITY FAIL")
+    if record:
+        _record(record, "mesh" if mesh else "cover", stats)
+    return 0 if stats["ok"] else 1
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """SURVEY.md §2 component-inventory coverage check.
 
-Every reference component row maps to a TPU-native module + symbols;
+Every reference component row maps to a module + symbols of this build;
 exits nonzero if anything is missing. Run: python tools/inventory_check.py
 """
 import importlib
@@ -37,13 +37,6 @@ ROWS = [
      ["trace", "trace_progressive"]),
     ("Renderer/scheduler (render.cpp:135-191)", "rtow_tpu.render",
      ["render", "chunk_radiance"]),
-    ("Megakernel (north-star)", "rtow_tpu.ops.pallas_megakernel",
-     ["render_spheres_pallas", "render_blocks_pallas", "build_sphere_table",
-      "build_tri_table", "bounce_step_pallas"]),
-    ("Sorted-wavefront mesh path (north-star)", "rtow_tpu.ops.wavefront_sorted",
-     ["render_wavefront", "trace_wavefront_sorted", "sort_keys"]),
-    ("Kernel gradients (north-star)", "rtow_tpu.ops.pallas_grad",
-     ["render_pixels_kernel", "loss_and_grad_kernel", "bounce_grad"]),
     ("write_color/PPM (render.cpp:11-20)", "rtow_tpu.utils.ppm",
      ["tonemap", "write_ppm", "read_ppm", "decode_ppm"]),
     ("lots_of_balls (main.cpp:23-83)", "rtow_tpu.models.builders", ["cover_scene"]),
@@ -51,8 +44,7 @@ ROWS = [
     ("tinyobjloader (main.cpp:109-131)", "rtow_tpu.utils.obj", ["load_obj"]),
     ("CLI11 app (main.cpp:138-170)", "rtow_tpu.cli", ["main", "build_parser"]),
     ("std::async fan-out (render.cpp:172-180)", "rtow_tpu.parallel.sharded",
-     ["render_sharded", "render_sharded_pallas", "render_sharded_wavefront",
-      "build_sharded_step"]),
+     ["render_sharded", "build_sharded_step"]),
     ("Device mesh layout", "rtow_tpu.parallel.mesh", ["make_mesh", "choose_split"]),
     ("Multi-host comms", "rtow_tpu.parallel.distributed", ["initialize", "is_primary"]),
     ("Differentiability (north-star)", "rtow_tpu.diff",
@@ -63,7 +55,7 @@ ROWS = [
     ("Profiling/observability", "rtow_tpu.utils.profiling",
      ["RenderStats", "trace_profile", "bvh_quality"]),
     ("Backend dispatch", "rtow_tpu.pipeline",
-     ["render_auto", "pick_nearest_hit", "pallas_supported"]),
+     ["render_auto", "pick_nearest_hit"]),
 ]
 
 

@@ -27,7 +27,8 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 
-TARGETS = ["rtow_tpu", "tests", "tools", "bench.py", "__graft_entry__.py"]
+TARGETS = ["rtow_tpu", "tests", "tools", "bench.py", "__graft_entry__.py",
+           "chip_smoke.py"]
 
 
 def iter_files():

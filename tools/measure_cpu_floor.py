@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Measure the CPU reference floor (BASELINE.md step 1) and record it.
+"""Measure the CPU reference floor and record it.
 
 Compiles tools/cpu_floor.cpp (the independent re-implementation of the
 reference's algorithm — recursive double-precision tracer, BVH,
@@ -69,7 +69,7 @@ def main() -> int:
         "machine": f"{ncpu}-thread CPU",
         "note": "independent re-implementation of the reference algorithm "
                 "(tools/cpu_floor.cpp); reference publishes no numbers and "
-                "its conan deps are unavailable (BASELINE.md)",
+                "its conan deps are unavailable",
         **mesh_floors,
         "mesh_workload": "trefoil knot 400x400 spp=32 depth=20, 4 threads, "
                          "camera (0,0,3)->origin fov45 (bench.py mesh config)",
